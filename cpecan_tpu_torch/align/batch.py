@@ -19,12 +19,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from cpecan_tpu.config import PairwiseAlignmentParameters
-from cpecan_tpu.models.state_machine import StateMachine
-from cpecan_tpu.ops import pairs as pairs_mod
-from cpecan_tpu.ops.band import construct_band, full_band, pad_band
-from cpecan_tpu.utils import metrics
-from cpecan_tpu.utils.symbols import encode
+from cpecan_tpu_torch.config import PairwiseAlignmentParameters
+from cpecan_tpu_torch.models.state_machine import StateMachine
+from cpecan_tpu_torch.ops import pairs as pairs_mod
+from cpecan_tpu_torch.ops.band import construct_band, full_band, pad_band
+from cpecan_tpu_torch.utils import metrics
+from cpecan_tpu_torch.utils.symbols import encode
 from cpecan_tpu_torch.align.pairwise import (
     _bucket, _iterate_chunks, _width_bucket)
 from cpecan_tpu_torch.models.state_machine import PairHMM
@@ -72,7 +72,7 @@ def _compact_above(post, thr, cap):
 def _sparse_to_pairs_batch(idx, vals, offs, P1, W, items, res_one):
     """Vectorized host decode of one launch's compacted entries into
     per-job pair arrays (addPosteriorProb semantics)."""
-    from cpecan_tpu.utils.logmath import PAIR_ALIGNMENT_PROB_1
+    from cpecan_tpu_torch.utils.logmath import PAIR_ALIGNMENT_PROB_1
 
     sel = idx >= 0
     idx = idx[sel].astype(np.int64)

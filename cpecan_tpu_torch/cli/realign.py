@@ -5,8 +5,9 @@ semantics (reference cPecanRealign.c): fasta files as arguments, cigars
 on stdin, realigned (or rescored) cigars out. ``--device`` (default
 ``cuda``) picks where the forward-backward pass runs; ``cuda`` without a
 CUDA device raises, and nothing falls back to the CPU.
-``--outputExpectations`` (EM) belongs to a later slice and raises
-NotImplementedError.
+``--outputExpectations`` is the EM pipeline's worker mode: the records'
+expected counts, in batched expectation passes, go to an HMM file instead
+of cigars to stdout.
 
 Usage: python -m cpecan_tpu_torch.cli.realign [options] seq1.fasta [...]
 """
@@ -19,18 +20,18 @@ import sys
 import numpy as np
 import torch
 
-from cpecan_tpu.config import PairwiseAlignmentParameters
-from cpecan_tpu.io import cigar as cigar_io
-from cpecan_tpu.io.fasta import fasta_read_file
-from cpecan_tpu.models.hmm import Hmm, StateMachineType
-from cpecan_tpu.models.state_machine import (
+from cpecan_tpu_torch.config import PairwiseAlignmentParameters
+from cpecan_tpu_torch.io import cigar as cigar_io
+from cpecan_tpu_torch.io.fasta import fasta_read_file
+from cpecan_tpu_torch.models.hmm import Hmm, StateMachineType
+from cpecan_tpu_torch.models.state_machine import (
     state_machine5, state_machine_from_hmm)
-from cpecan_tpu.msa.aligner import filter_pairwise_alignment_to_make_pairs_ordered
-from cpecan_tpu.ops import mea as mea_mod
-from cpecan_tpu.ops import pairs as pairs_mod
-from cpecan_tpu.utils import metrics
-from cpecan_tpu.utils.logmath import PAIR_ALIGNMENT_PROB_1
-from cpecan_tpu.utils.symbols import reverse_complement
+from cpecan_tpu_torch.msa.aligner import filter_pairwise_alignment_to_make_pairs_ordered
+from cpecan_tpu_torch.ops import mea as mea_mod
+from cpecan_tpu_torch.ops import pairs as pairs_mod
+from cpecan_tpu_torch.utils import metrics
+from cpecan_tpu_torch.utils.logmath import PAIR_ALIGNMENT_PROB_1
+from cpecan_tpu_torch.utils.symbols import reverse_complement
 from cpecan_tpu_torch.align import batch as batch_align
 
 
@@ -226,7 +227,7 @@ def make_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _resolve_device(name: str) -> torch.device:
+def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available")
@@ -253,17 +254,18 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     args = make_parser().parse_args(argv)
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout
-    if args.outputExpectations:
-        raise NotImplementedError(
-            "--outputExpectations needs the EM slice of the port "
-            "(the _exp_kernel port); use cpecan_tpu.cli.realign")
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     p = alignment_parameters(args)
 
     if args.loadHmm:
         sm = state_machine_from_hmm(Hmm.load(args.loadHmm))
     else:
         sm = state_machine5(StateMachineType.fiveState)
+
+    hmm_expectations = None
+    if args.outputExpectations:
+        # tiny pseudocount prevents overflow (reference :493)
+        hmm_expectations = Hmm(sm.type, pseudo_expectation=1e-12)
 
     sequences = read_sequences(args.fastas)
 
@@ -348,11 +350,30 @@ def main(argv=None, stdin=None, stdout=None) -> int:
 
     # prepare group i+1 on a worker thread while group i's device batch
     # runs (torch releases the GIL inside its operators; utils/pipeline.py)
-    from cpecan_tpu.utils.pipeline import prefetch_map
+    from cpecan_tpu_torch.utils.pipeline import prefetch_map
 
     for prepared in prefetch_map(
             lambda group: [prepare(pa) for pa in group],
             batches(cigar_io.cigar_read(stdin), max(args.batchPairs, 1))):
+        if hmm_expectations is not None:
+            # bucketed cross-record batches (em.expectation_step): this
+            # mode is the reference EM pipeline's worker
+            # (cPecanEm.py:178-180)
+            from cpecan_tpu_torch.align.pairwise import _iterate_chunks
+            from cpecan_tpu_torch.em.em import _Task, expectation_step
+
+            tasks = []
+            for (pa, sub_x, sub_y, anchors, filtered_anchors,
+                 *_rest) in prepared:
+                for (x1, y1, x2, y2), local, rl, rr in _iterate_chunks(
+                        sub_x, sub_y, filtered_anchors, p, True, True):
+                    if x2 - x1 == 0 and y2 - y1 == 0:
+                        continue
+                    tasks.append(_Task(sub_x[x1:x2], sub_y[y1:y2],
+                                       local, rl, rr))
+            expectation_step(sm, tasks, p, hmm_expectations, device=device)
+            continue
+
         # one cross-record device batch per group (reference realigns one
         # cigar at a time, cPecanRealign.c:509)
         jobs = [(sub_x, sub_y, filtered_anchors, True, True)
@@ -374,13 +395,11 @@ def main(argv=None, stdin=None, stdout=None) -> int:
             emit_record(pa, sub_x, sub_y, anchors, aligned,
                         shift1, flip1, shift2, flip2, gaps=gaps)
 
+    if hmm_expectations is not None:
+        hmm_expectations.save(args.outputExpectations)
     if metrics.enabled():
-        snap = metrics.snapshot()
-        for k, v in sorted(snap["stages"].items()):
-            print(f"metrics: {k}: {v['calls']} calls {v['seconds']:.3f}s",
-                  file=sys.stderr)
-        for k, v in sorted(snap["counters"].items()):
-            print(f"metrics: {k}: {v}", file=sys.stderr)
+        for line in metrics.report_lines():
+            print(f"metrics: {line}", file=sys.stderr)
     return 0
 
 

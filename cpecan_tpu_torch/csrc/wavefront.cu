@@ -6,9 +6,11 @@
 //                    launched by _fb_wavefront_jit (fb_wavefront.py:1059)
 //   wavefront_bwd <- _bwd_kernel (fb_wavefront.py:404), batch, no carries,
 //                    launched by _fb_wavefront_jit (fb_wavefront.py:1256)
+//   wavefront_exp <- _exp_kernel (fb_wavefront.py:592), batch, no carries,
+//                    launched by _fb_wavefront_jit (fb_wavefront.py:1195)
 // and computes what those bodies compute; the plain PyTorch versions
-// (cpecan_tpu_torch/ops/fb_wavefront.py fwd_reference / bwd_reference)
-// follow the same arithmetic and are the kernels' oracle.
+// (cpecan_tpu_torch/ops/fb_wavefront.py fwd_reference / bwd_reference /
+// exp_reference) follow the same arithmetic and are the kernels' oracle.
 //
 // Layout (batch-major, all contiguous): streams (B, R, W) with R = P+1
 // diagonals and W band slots; the forward intermediate F (B, R, S, W);
@@ -37,14 +39,42 @@
 // hundreds of pairs (blocks) to hide the serial chain's latency across
 // the 132 SMs. Several pairs per block, asynchronous copies of the
 // streams and fewer barriers per diagonal are later work.
+//
+// wavefront_exp (EM's E-step) runs wavefront_bwd's recursion (one
+// templated body, backward_body, so mb and total come out the same) and,
+// per cell, adds the posterior flow into Baum-Welch expected counts. Its
+// neighbour rows F_{k-1} and F_{k-2} are read straight from the forward
+// intermediate (the TPU's 2-row halo block is tiling and has no
+// counterpart). The per-transition accumulators (13 or 9) live in
+// registers, summed over the thread's slots; the S x 16 emission
+// accumulators, which the TPU body fills with 16 masked adds per state
+// per cell, are a private column of shared memory per thread indexed by
+// the cell's symbol pair (row-major (S*16, threads), so the threads of a
+// warp hit 32 distinct banks). That column (S*16*4 bytes) bounds the
+// block at 256 threads, each with up to 8 slots (W <= 2048). Wider bands
+// (to W <= 4096, the other kernels' limit) run 512 threads of 8 slots
+// with the columns in a device scratch buffer that the caller passes, one
+// (S*16, 512) region per block: each thread still reads and writes only
+// its own column until the block's final barrier. At the end
+// the block reduces its accumulators in a fixed order and writes its
+// pair's (S, S) and (S, 4, 4) counts; the batch sum is the caller's. No
+// atomics, so the counts are the same from run to run. On top of
+// wavefront_bwd's traffic it reads the two forward emission streams, the
+// symbol streams and F rows k-1 and k-2 (from L2 or device memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kMaxSlotsPerThread = 4;
 constexpr int kMaxThreads = 1024;
+constexpr int kExpSlotsPerThread = 8;
+constexpr int kExpMaxThreads = 256;      // emission columns in shared memory
+constexpr int kExpWideThreads = 512;     // columns in the caller's scratch
+constexpr int kExpSharedWidth = kExpSlotsPerThread * kExpMaxThreads;
 constexpr int kNormEvery = 4;
 
 constexpr int kPmMatch = 1;
@@ -83,6 +113,24 @@ struct Trans {
 // Bridge vector: sum over match transitions of F_{k-2}[from] * t_m[from, match].
 #define CPECAN_BV_TERM(c, f, t) \
   if ((c) == 1) acc += own2[f] * T[((c) * S + (f)) * S + (t)];
+// Expectations, transition k of the list: n = neighbour * emission;
+// tacc[k] += n * B_k[to] / total; q[to] += n * T[c, from, to].
+#define CPECAN_EXP_TERM(c, f, t)                                       \
+  {                                                                    \
+    const float n = (c) == 0 ? lo[f] : (c) == 1 ? mid[f] : up[f];      \
+    tacc[k] += n * bw[t];                                              \
+    q[t] += n * T[((c) * S + (f)) * S + (t)];                          \
+    ++k;                                                               \
+  }
+// Per-pair transition counts: trans[from, to] += sum(tacc[k]) * T.
+#define CPECAN_TRANS_TERM(c, f, t)                                     \
+  {                                                                    \
+    const float v = block_sum(tacc[k], red);                           \
+    __syncthreads();                                                   \
+    out[(f) * S + (t)] += v * T[((c) * S + (f)) * S + (t)];            \
+    ++k;                                                               \
+  }
+#define CPECAN_COUNT(c, f, t) +1
 
 template <int S> struct Model;
 
@@ -103,6 +151,17 @@ template <> struct Model<5> {
     CPECAN_NZ5(CPECAN_BV_TERM)
     return acc;
   }
+  static constexpr int kNz = 0 CPECAN_NZ5(CPECAN_COUNT);
+  static __device__ __forceinline__ void exp(float* tacc, float* q, const float* lo,
+                                             const float* mid, const float* up, const float* bw,
+                                             const float* T) {
+    constexpr int S = 5;
+    int k = 0;
+    CPECAN_NZ5(CPECAN_EXP_TERM)
+  }
+  // Every thread of the block calls it; out (S*S) is the caller's.
+  static __device__ __forceinline__ void trans(float* out, const float* tacc, float* red,
+                                               const float* T);
 };
 
 template <> struct Model<3> {
@@ -122,6 +181,17 @@ template <> struct Model<3> {
     CPECAN_NZ3(CPECAN_BV_TERM)
     return acc;
   }
+  static constexpr int kNz = 0 CPECAN_NZ3(CPECAN_COUNT);
+  static __device__ __forceinline__ void exp(float* tacc, float* q, const float* lo,
+                                             const float* mid, const float* up, const float* bw,
+                                             const float* T) {
+    constexpr int S = 3;
+    int k = 0;
+    CPECAN_NZ3(CPECAN_EXP_TERM)
+  }
+  // Every thread of the block calls it; out (S*S) is the caller's.
+  static __device__ __forceinline__ void trans(float* out, const float* tacc, float* red,
+                                               const float* T);
 };
 
 // row[j] inside [0, W), zero outside (the Pallas shifts' zero fill).
@@ -252,25 +322,79 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_fwd(
   }
 }
 
-template <int S>
-__global__ void __launch_bounds__(kMaxThreads) wavefront_bwd(
-    const Trans tr, const float* __restrict__ efx, const float* __restrict__ efy,
-    const float* __restrict__ efm, const float* __restrict__ em, const float* __restrict__ F,
-    const float* __restrict__ bv, const int8_t* __restrict__ abw, const int8_t* __restrict__ c1,
-    const int8_t* __restrict__ c0, const int8_t* __restrict__ bm1,
-    const int8_t* __restrict__ bm0, const int8_t* __restrict__ pm,
-    const float* __restrict__ end_row, float* __restrict__ post_m, float* __restrict__ post_x,
-    float* __restrict__ post_y, float* __restrict__ mb, float* __restrict__ tot, int R, int W) {
-  extern __shared__ float smem[];
-  __shared__ float red[3][32];
+__device__ __forceinline__ void Model<5>::trans(float* out, const float* tacc, float* red,
+                                                const float* T) {
+  constexpr int S = 5;
+  int k = 0;
+  CPECAN_NZ5(CPECAN_TRANS_TERM)
+}
+
+__device__ __forceinline__ void Model<3>::trans(float* out, const float* tacc, float* red,
+                                                const float* T) {
+  constexpr int S = 3;
+  int k = 0;
+  CPECAN_NZ3(CPECAN_TRANS_TERM)
+}
+
+// Arguments of the backward kernels; the second group is wavefront_bwd's
+// output, the third wavefront_exp's inputs and outputs.
+struct BwdArgs {
+  const float* efx;
+  const float* efy;
+  const float* efm;
+  const float* em;
+  const float* F;
+  const float* bv;
+  const int8_t* abw;
+  const int8_t* c1;
+  const int8_t* c0;
+  const int8_t* bm1;
+  const int8_t* bm0;
+  const int8_t* pm;
+  const float* end_row;
+  float* mb;
+  float* tot;
+  // wavefront_bwd: posteriors (post_x / post_y null in posterior_match)
+  float* post_m;
+  float* post_x;
+  float* post_y;
+  // wavefront_exp: forward emission streams and shift selects, the
+  // neighbour scale adjustments, the cells' symbols, per-pair counts
+  const float* ex;
+  const float* ey;
+  const int8_t* a;
+  const int8_t* b1;
+  const int8_t* b0;
+  const float* adj1;
+  const float* adj2;
+  const int8_t* wx;
+  const int8_t* wy;
+  float* trans;
+  float* emis;
+  // wavefront_exp at W > kExpSharedWidth: (B, S*16, blockDim.x) emission
+  // columns; null otherwise (the columns live in shared memory)
+  float* eacc;
+};
+
+// The backward wavefront of one pair (this block's), high to low, with
+// the posteriors (kExp false: wavefront_bwd) or the expected counts
+// (kExp true: wavefront_exp) of each diagonal. Shared memory: B_{k+1},
+// B_{k+2} (S, W) each, bridgevec_{k+1} (W), and for kExp the emission
+// accumulators (S * 16, blockDim.x) unless kScratch puts them in p.eacc.
+template <int S, int kSlots, bool kExp, bool kScratch = false>
+__device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p, int R, int W,
+                                              float* smem, float (*red)[32]) {
   float* b1s = smem;              // B_{k+1} (S, W)
   float* b2s = smem + S * W;      // B_{k+2} (S, W)
   float* bvn = smem + 2 * S * W;  // bridgevec_{k+1} (W)
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  // kExp: (S * 16, nt) emission accumulators; thread tid owns column tid
+  float* eacc = kScratch ? p.eacc + (size_t)b * S * 16 * nt : bvn + W;
   const float* T = tr.v;
-  const bool all = post_x != nullptr;
+  const bool all = p.post_x != nullptr;
+  constexpr int kNz = Model<S>::kNz;
 
   // The recursion starts past the last diagonal from zero carries.
   for (int j = tid; j < S * W; j += nt) {
@@ -278,39 +402,45 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_bwd(
     b2s[j] = 0.f;
   }
   for (int j = tid; j < W; j += nt) bvn[j] = 0.f;
-  float emn[kMaxSlotsPerThread];  // em_{k+1} of the thread's own slots
+  if constexpr (kExp) {
+    for (int j = tid; j < S * 16 * nt; j += nt) eacc[j] = 0.f;
+  }
+  float tacc[kExp ? kNz : 1];
 #pragma unroll
-  for (int q = 0; q < kMaxSlotsPerThread; ++q) emn[q] = 0.f;
+  for (int k = 0; k < (kExp ? kNz : 1); ++k) tacc[k] = 0.f;
+  float emn[kSlots];  // em_{k+1} of the thread's own slots
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) emn[q] = 0.f;
   float invb = 1.f;  // 1/mb_{k+1}
   __syncthreads();
 
   for (int ii = R - 1; ii >= 0; --ii) {
     const size_t row = (size_t)b * R + ii;
     const bool norm = ii % kNormEvery == kNormEvery - 1;
-    const int pm0 = pm[row * W];  // row-constant bits live in every slot
+    const int pm0 = p.pm[row * W];  // row-constant bits live in every slot
     const bool at_end = (pm0 & kPmAtEnd) != 0;
     const bool bvalid = (pm0 & kPmBridge) != 0;
     // receive from k+1: x-class at j+1-d1, y-class at j-d1; from k+2:
     // m-class at j+1-dsum2; bridge vector at j+dmid_{k+1}
-    const bool sabw = abw[row] != 0;
+    const bool sabw = p.abw[row] != 0;
     const int dx = sabw ? 0 : 1;
     const int dy = sabw ? -1 : 0;
-    const int dm = c1[row] != 0 ? -1 : (c0[row] != 0 ? 0 : 1);
-    const int db = bm1[row] != 0 ? 1 : (bm0[row] != 0 ? 0 : -1);
+    const int dm = p.c1[row] != 0 ? -1 : (p.c0[row] != 0 ? 0 : 1);
+    const int db = p.bm1[row] != 0 ? 1 : (p.bm0[row] != 0 ? 0 : -1);
 
-    float raw[kMaxSlotsPerThread][S];
+    float raw[kSlots][S];
     float lmax = 0.f;
     float lbr = 0.f;
 #pragma unroll
-    for (int q = 0; q < kMaxSlotsPerThread; ++q) {
+    for (int q = 0; q < kSlots; ++q) {
       const int j = tid + q * nt;
 #pragma unroll
       for (int s = 0; s < S; ++s) raw[q][s] = 0.f;
       if (j < W) {
         const size_t o = row * W + j;
-        const float efxj = efx[o];
-        const float efyj = efy[o];
-        const float efmi = efm[o] * invb;
+        const float efxj = p.efx[o];
+        const float efyj = p.efy[o];
+        const float efmi = p.efm[o] * invb;
         float bx[S], bm[S], by[S];
 #pragma unroll
         for (int s = 0; s < S; ++s) {
@@ -321,7 +451,7 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_bwd(
         Model<S>::bwd(raw[q], bx, bm, by, T);
         if (at_end) {
 #pragma unroll
-          for (int s = 0; s < S; ++s) raw[q][s] = end_row[((size_t)b * S + s) * W + j];
+          for (int s = 0; s < S; ++s) raw[q][s] = p.end_row[((size_t)b * S + s) * W + j];
         }
         if (norm) {
 #pragma unroll
@@ -341,17 +471,18 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_bwd(
     }
     const float bridge = block_sum(lbr, red[1]);
 
-    float Fv[kMaxSlotsPerThread][S];
+    float Fv[kExp ? 1 : kSlots][S];  // F_k of the thread's slots (posteriors)
     float ldot = 0.f;
 #pragma unroll
-    for (int q = 0; q < kMaxSlotsPerThread; ++q) {
+    for (int q = 0; q < kSlots; ++q) {
       const int j = tid + q * nt;
       if (j < W) {
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           raw[q][s] *= r;
-          Fv[q][s] = F[(row * S + s) * W + j];
-          ldot += Fv[q][s] * raw[q][s];
+          const float fv = p.F[(row * S + s) * W + j];
+          if constexpr (!kExp) Fv[q][s] = fv;
+          ldot += fv * raw[q][s];
         }
       }
     }
@@ -362,20 +493,61 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_bwd(
     const bool ok = total > 0.f;
     const float invt = ok ? 1.f / total : 0.f;
     if (tid == 0) {
-      mb[row] = mbv;
-      tot[row] = ok ? logf(total) : 0.f;
+      p.mb[row] = mbv;
+      p.tot[row] = ok ? logf(total) : 0.f;
+    }
+
+    // forward-side row constants of the expectations: F_{k-1} (lower
+    // neighbour at j-1+a, upper at j+a) and F_{k-2} (middle at j+dmid),
+    // zero below diagonals 1 and 2 (where adj1 / adj2 are zero too)
+    const float* F1 = nullptr;
+    const float* F2 = nullptr;
+    int dl = 0, du = 0, dmf = 0;
+    float a1 = 0.f, a2 = 0.f;
+    if constexpr (kExp) {
+      const bool sa = p.a[row] != 0;
+      dl = sa ? 0 : -1;
+      du = sa ? 1 : 0;
+      dmf = p.b1[row] != 0 ? 1 : (p.b0[row] != 0 ? 0 : -1);
+      a1 = p.adj1[row];
+      a2 = p.adj2[row];
+      if (ii >= 1) F1 = p.F + (row - 1) * S * W;
+      if (ii >= 2) F2 = p.F + (row - 2) * S * W;
     }
 
 #pragma unroll
-    for (int q = 0; q < kMaxSlotsPerThread; ++q) {
+    for (int q = 0; q < kSlots; ++q) {
       const int j = tid + q * nt;
       if (j < W) {
         const size_t o = row * W + j;
-        const int p = pm[o];
-        post_m[o] = (p & kPmMatch) ? Fv[q][0] * raw[q][0] * invt : 0.f;
-        if (all) {
-          post_x[o] = (p & kPmGapX) ? Fv[q][1] * raw[q][1] * invt : 0.f;
-          post_y[o] = (p & kPmGapY) ? Fv[q][2] * raw[q][2] * invt : 0.f;
+        if constexpr (kExp) {
+          const float exa = p.ex[o] * a1;
+          const float eya = p.ey[o] * a1;
+          const float ema = p.em[o] * a2;
+          float lo[S], mid[S], up[S], bw[S], qv[S];
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            lo[s] = F1 ? nb(F1 + s * W, j + dl, W) * exa : 0.f;
+            up[s] = F1 ? nb(F1 + s * W, j + du, W) * eya : 0.f;
+            mid[s] = F2 ? nb(F2 + s * W, j + dmf, W) * ema : 0.f;
+            bw[s] = raw[q][s] * invt;
+            qv[s] = 0.f;
+          }
+          Model<S>::exp(tacc, qv, lo, mid, up, bw, T);
+          const int sx = p.wx[o];
+          const int sy = p.wy[o];
+          if (sx < 4 && sy < 4) {
+            float* col = eacc + (sx * 4 + sy) * nt + tid;
+#pragma unroll
+            for (int s = 0; s < S; ++s) col[s * 16 * nt] += qv[s] * bw[s];
+          }
+        } else {
+          const int pb = p.pm[o];
+          p.post_m[o] = (pb & kPmMatch) ? Fv[q][0] * raw[q][0] * invt : 0.f;
+          if (all) {
+            p.post_x[o] = (pb & kPmGapX) ? Fv[q][1] * raw[q][1] * invt : 0.f;
+            p.post_y[o] = (pb & kPmGapY) ? Fv[q][2] * raw[q][2] * invt : 0.f;
+          }
         }
         // B_k replaces B_{k+2}; B_{k+1} becomes B_{k+2}, zeroed at k == L
 #pragma unroll
@@ -383,8 +555,8 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_bwd(
           b2s[s * W + j] = raw[q][s];
           if (at_end) b1s[s * W + j] = 0.f;
         }
-        bvn[j] = bv[o];
-        emn[q] = em[o];
+        bvn[j] = p.bv[o];
+        emn[q] = p.em[o];
       }
     }
     invb = at_end ? 1.f : r;
@@ -393,6 +565,42 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_bwd(
     b1s = b2s;
     b2s = tmp;
   }
+
+  if constexpr (kExp) {
+    // The pair's counts: transitions by block reductions, emissions by
+    // one thread per (state, symbol pair) summing the threads' columns
+    // in order. The loop's final barrier precedes these reads.
+    float out[S * S];
+#pragma unroll
+    for (int k = 0; k < S * S; ++k) out[k] = 0.f;
+    Model<S>::trans(out, tacc, red[0], T);
+    if (tid == 0) {
+      for (int k = 0; k < S * S; ++k) p.trans[(size_t)b * S * S + k] = out[k];
+    }
+    for (int k = tid; k < S * 16; k += nt) {
+      const float* rowp = eacc + k * nt;
+      float s = 0.f;
+      for (int c = 0; c < nt; ++c) s += rowp[c];
+      p.emis[(size_t)b * S * 16 + k] = s;
+    }
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(kMaxThreads)
+    wavefront_bwd(const Trans tr, const BwdArgs p, int R, int W) {
+  extern __shared__ float smem[];
+  __shared__ float red[3][32];
+  backward_body<S, kMaxSlotsPerThread, false>(tr, p, R, W, smem, red);
+}
+
+template <int S, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    wavefront_exp(const Trans tr, const BwdArgs p, int R, int W) {
+  extern __shared__ float smem[];
+  __shared__ float red[3][32];
+  backward_body<S, kExpSlotsPerThread, true, (kThreads > kExpMaxThreads)>(tr, p, R, W, smem,
+                                                                        red);
 }
 
 int threads_for(int W) {
@@ -420,18 +628,29 @@ int launch_fwd(const float* t_host, const float* ex, const float* ey, const floa
 }
 
 template <int S>
-int launch_bwd(const float* t_host, const float* efx, const float* efy, const float* efm,
-               const float* em, const float* F, const float* bv, const int8_t* abw,
-               const int8_t* c1, const int8_t* c0, const int8_t* bm1, const int8_t* bm0,
-               const int8_t* pm, const float* end_row, float* post_m, float* post_x,
-               float* post_y, float* mb, float* tot, int B, int R, int W, cudaStream_t stream) {
+int launch_bwd(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaStream_t stream) {
   const size_t smem = (2 * (size_t)S + 1) * W * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(wavefront_bwd<S>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wavefront_bwd<S><<<B, threads_for(W), smem, stream>>>(
-      load_trans(S, t_host), efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row,
-      post_m, post_x, post_y, mb, tot, R, W);
+  wavefront_bwd<S><<<B, threads_for(W), smem, stream>>>(load_trans(S, t_host), p, R, W);
+  return (int)cudaGetLastError();
+}
+
+// W <= kExpSharedWidth: up to 256 threads, emission columns in shared
+// memory; wider: 512 threads, columns in p.eacc.
+template <int S>
+int launch_exp(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaStream_t stream) {
+  const bool wide = W > kExpSharedWidth;
+  if (wide != (p.eacc != nullptr)) return (int)cudaErrorInvalidValue;
+  const int nt = wide ? kExpWideThreads : std::min((W + 31) / 32 * 32, kExpMaxThreads);
+  const size_t smem =
+      ((2 * (size_t)S + 1) * W + (wide ? 0 : (size_t)S * 16 * nt)) * sizeof(float);
+  auto kernel = wide ? wavefront_exp<S, kExpWideThreads> : wavefront_exp<S, kExpMaxThreads>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<B, nt, smem, stream>>>(load_trans(S, t_host), p, R, W);
   return (int)cudaGetLastError();
 }
 
@@ -465,12 +684,38 @@ int cpecan_wavefront_bwd(int S, const float* t_host, const float* efx, const flo
                          float* mb, float* tot, int B, int R, int W, void* stream) {
   if (bad_shape(S, B, R, W)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  BwdArgs p = {};
+  p.efx = efx, p.efy = efy, p.efm = efm, p.em = em, p.F = F, p.bv = bv;
+  p.abw = abw, p.c1 = c1, p.c0 = c0, p.bm1 = bm1, p.bm0 = bm0, p.pm = pm;
+  p.end_row = end_row, p.mb = mb, p.tot = tot;
+  p.post_m = post_m, p.post_x = post_x, p.post_y = post_y;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S == 5)
-    return launch_bwd<5>(t_host, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row,
-                         post_m, post_x, post_y, mb, tot, B, R, W, st);
-  return launch_bwd<3>(t_host, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row,
-                       post_m, post_x, post_y, mb, tot, B, R, W, st);
+  if (S == 5) return launch_bwd<5>(t_host, p, B, R, W, st);
+  return launch_bwd<3>(t_host, p, B, R, W, st);
+}
+
+int cpecan_wavefront_exp(int S, const float* t_host, const float* efx, const float* efy,
+                         const float* efm, const float* em, const float* ex, const float* ey,
+                         const float* F, const float* bv, const int8_t* abw, const int8_t* c1,
+                         const int8_t* c0, const int8_t* bm1, const int8_t* bm0,
+                         const int8_t* a, const int8_t* b1, const int8_t* b0,
+                         const int8_t* pm, const float* end_row, const float* adj1,
+                         const float* adj2, const int8_t* wx, const int8_t* wy, float* trans,
+                         float* emis, float* eacc, float* mb, float* tot, int B, int R, int W,
+                         void* stream) {
+  if (bad_shape(S, B, R, W) || W > kExpSlotsPerThread * kExpWideThreads)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  BwdArgs p = {};
+  p.efx = efx, p.efy = efy, p.efm = efm, p.em = em, p.F = F, p.bv = bv;
+  p.abw = abw, p.c1 = c1, p.c0 = c0, p.bm1 = bm1, p.bm0 = bm0, p.pm = pm;
+  p.end_row = end_row, p.mb = mb, p.tot = tot;
+  p.ex = ex, p.ey = ey, p.a = a, p.b1 = b1, p.b0 = b0;
+  p.adj1 = adj1, p.adj2 = adj2, p.wx = wx, p.wy = wy, p.trans = trans, p.emis = emis;
+  p.eacc = eacc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S == 5) return launch_exp<5>(t_host, p, B, R, W, st);
+  return launch_exp<3>(t_host, p, B, R, W, st);
 }
 
 const char* cpecan_cuda_error_string(int err) {

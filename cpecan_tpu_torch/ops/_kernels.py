@@ -33,6 +33,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "cpecan_wavefront_fwd": [_I] + [_P] * 11 + [_I] * 3 + [_P],
     "cpecan_wavefront_bwd": [_I] + [_P] * 19 + [_I] * 3 + [_P],
+    "cpecan_wavefront_exp": [_I] + [_P] * 28 + [_I] * 3 + [_P],
 }
 
 

@@ -1,7 +1,7 @@
 """Banded-wavefront forward-backward: stream prep, plain versions, kernels.
 
-Counterpart of cpecan_tpu/ops/fb_wavefront.py. Two hand-written CUDA
-kernels (csrc/wavefront.cu) replace its Pallas kernels on this path:
+Counterpart of cpecan_tpu/ops/fb_wavefront.py. Three hand-written CUDA
+kernels (csrc/wavefront.cu) replace its Pallas kernels:
 
  * ``fwd`` <- ``_fwd_kernel``: forward wavefront from the start row F0.
    Per diagonal it forms the gap-X, gap-Y and match terms through the
@@ -12,10 +12,14 @@ kernels (csrc/wavefront.cu) replace its Pallas kernels on this path:
    diagonal it forms the total (F.B dot plus the one-step match bridge,
    reference diagonalCalculationTotalProbability) and writes the
    posteriors gated by the pm bits; no B tensor reaches device memory.
+ * ``exp`` <- ``_exp_kernel``: the same backward recursion plus the
+   Baum-Welch expected counts (EM's E-step): per cell the posterior flow
+   F_prev[f] * T_c * e_c * B_k[t] / total_k into trans[f, t] and, through
+   the cell's symbol pair, into emis[t, a, b]; per-pair outputs.
 
 Each wrapper runs its plain PyTorch version (``fwd_reference`` /
-``bwd_reference``) for a CPU tensor, and launches its kernel or raises
-for a CUDA tensor. The plain versions follow the Pallas bodies line for
+``bwd_reference`` / ``exp_reference``) for a CPU tensor, and launches its
+kernel or raises for a CUDA tensor. The plain versions follow the Pallas bodies line for
 line in arithmetic and serve as the kernels' oracle.
 
 Layout is batch-major: streams (B, R, W) with R = P+1 diagonals and W
@@ -51,8 +55,14 @@ _PM_GAPY = 4
 _PM_ATEND = 8  # k == L (broadcast over slots)
 _PM_BRIDGE = 16  # 1 <= k < L (broadcast over slots)
 
-# Widest band the kernels take: 1024 threads x 4 slots per thread.
+# Widest band the kernels take: fwd/bwd 1024 threads x 4 slots per
+# thread, exp 512 threads x 8 slots.
 MAX_KERNEL_WIDTH = 4096
+# Widest band whose per-thread emission accumulators fit exp's shared
+# memory (256 threads x 8 slots); wider launches pass a device scratch
+# buffer for them, (B, S*16, EXP_WIDE_THREADS) fp32.
+EXP_SHARED_WIDTH = 2048
+EXP_WIDE_THREADS = 512
 
 # Transition structures compiled into the kernels, {S: triples}, read
 # from csrc/wavefront.cu's CPECAN_NZ5 / CPECAN_NZ3. A model whose active
@@ -62,7 +72,7 @@ KERNEL_NZ = _kernels.kernel_structures()
 
 # Kernel launches since the last reset, per kernel. Incremented only
 # where a wrapper launches its kernel.
-LAUNCHES = {"fwd": 0, "bwd": 0}
+LAUNCHES = {"fwd": 0, "bwd": 0, "exp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -107,8 +117,10 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
     lx, ly: (B,) lengths; ragged_left/right: (B,) bool. Returns
     ex/ey/em/efx/efy/efm (B, P+1, W) f32 with slot validity folded in;
     a/b1/b0/abw/c1/c0/bm1/bm0 (B, P+1) int8; pm (B, P+1, W) int8;
-    F0 and end_row (B, S, W) f32; m0log (B,); xoff/jlo/jhi (B, P+1)
-    int64; L (B,) int64.
+    wx/wy (B, P+1, W) int8, the symbol pair of each cell (x at slot j,
+    y at slot j; the sentinel off the sequences), which the expectation
+    pass bins its emission counts by; F0 and end_row (B, S, W) f32;
+    m0log (B,); xoff/jlo/jhi (B, P+1) int64; L (B,) int64.
     """
     dev = offsets.device
     W = int(width)
@@ -183,6 +195,7 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
         "abw": i8(d1 == 1), "c1": i8(dsum2 == 2), "c0": i8(dsum2 == 1),
         "bm1": i8(dmid1 == 1), "bm0": i8(dmid1 == 0),
         "pm": pm.to(torch.int8),
+        "wx": wx[..., :W].contiguous(), "wy": wy[..., 1:].contiguous(),
         "F0": F0, "m0log": torch.log(m0), "end_row": end_row,
         "xoff": xoff, "jlo": jlo, "jhi": jhi, "L": L,
     }
@@ -262,21 +275,15 @@ def fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz):
     return F, bv, mf
 
 
-def bwd_reference(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
-                  end_row, nz, mode: str = "posterior_match"):
-    """Backward+posterior wavefront (high to low), vectorised over
-    (B, S, W); follows ``_bwd_kernel`` (batch path, phase 0).
-
-    Returns (posts, mb, total_raw): posts is [post_match] or
-    [post_match, post_gap_x, post_gap_y], each (B, R, W); mb and
-    total_raw are (B, R)."""
+def _bwd_sweep(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
+               end_row, nz, mb, tot):
+    """The backward recursion of ``_bwd_kernel`` / ``_exp_kernel`` (batch
+    path, phase 0), vectorised over (B, S, W), high to low. Writes mb and
+    total_raw into ``mb``/``tot`` (B, R) and yields, per diagonal ii,
+    (ii, F row (S tensors), B_k (S tensors), 1/total_k (B, 1), pm row)."""
     B, R, W = efx.shape
     S = F.shape[2]
     tv = t.detach().cpu().reshape(3 * S, S).tolist()
-    n_out = 3 if mode == "posterior_all" else 1
-    posts = [efx.new_empty(B, R, W) for _ in range(n_out)]
-    mb = efx.new_empty(B, R)
-    tot = efx.new_empty(B, R)
 
     zero = efx.new_zeros(B, W)
     B1 = [zero] * S
@@ -348,17 +355,108 @@ def bwd_reference(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
         invt = tot_ok / (total + (1.0 - tot_ok))
         tot[:, ii] = (torch.log(total + (1.0 - tot_ok)) * tot_ok)[:, 0]
 
-        gates = (_PM_MATCH, _PM_GAPX, _PM_GAPY)
-        for s in range(n_out):
-            posts[s][:, ii] = torch.where(
-                (pmi & gates[s]) != 0, F_row[s] * B_new[s] * invt, 0.0)
+        yield ii, F_row, B_new, invt, pmi
 
         B2 = [x * (1.0 - ae_f) for x in B1]
         B1 = B_new
         invb = r * (1.0 - ae_col) + ae_col
         em_next = em[:, ii]
         bvn = bv[:, ii]
+
+
+def bwd_reference(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
+                  end_row, nz, mode: str = "posterior_match"):
+    """Backward+posterior wavefront (high to low), vectorised over
+    (B, S, W); follows ``_bwd_kernel`` (batch path, phase 0).
+
+    Returns (posts, mb, total_raw): posts is [post_match] or
+    [post_match, post_gap_x, post_gap_y], each (B, R, W); mb and
+    total_raw are (B, R)."""
+    B, R, W = efx.shape
+    n_out = 3 if mode == "posterior_all" else 1
+    posts = [efx.new_empty(B, R, W) for _ in range(n_out)]
+    mb = efx.new_empty(B, R)
+    tot = efx.new_empty(B, R)
+    gates = (_PM_MATCH, _PM_GAPX, _PM_GAPY)
+    for ii, F_row, B_new, invt, pmi in _bwd_sweep(
+            t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row,
+            nz, mb, tot):
+        for s in range(n_out):
+            posts[s][:, ii] = torch.where(
+                (pmi & gates[s]) != 0, F_row[s] * B_new[s] * invt, 0.0)
     return posts, mb, tot
+
+
+def exp_reference(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1,
+                  bm0, a, b1, b0, pm, end_row, adj1, adj2, wx, wy, nz):
+    """Backward recursion plus expected counts, vectorised over (B, S, W);
+    follows ``_exp_kernel`` (batch path, phase 0).
+
+    The recursion is ``bwd_reference``'s, so mb and total_raw are the
+    same. Per cell the neighbour F rows of the forward intermediate
+    (F_{k-1}, F_{k-2}), rescaled into diagonal k's frame by adj1 =
+    exp(-mf_k)*[k>=1] and adj2 = exp(-(mf_k+mf_{k-1}))*[k>=2], times
+    their emission give n_e per active transition; n_e*B_k[t]/total_k
+    accumulates per transition (times T at the end), and sum over the
+    transitions into t of n_e*T*B_k[t]/total_k into the cell's symbol
+    pair (a, b) = (wx, wy) of state t (N and the sentinel add nothing).
+
+    ex/ey/em (B, R, W) f32 are the forward emission streams; a/b1/b0 the
+    forward shift selects; adj1/adj2 (B, R) f32; wx/wy (B, R, W) int8.
+    Returns (trans (B, S, S), emis (B, S, 4, 4), mb, total_raw)."""
+    B, R, W = efx.shape
+    S = F.shape[2]
+    tv = t.detach().cpu().reshape(3 * S, S).tolist()
+    mb = efx.new_empty(B, R)
+    tot = efx.new_empty(B, R)
+    zero = efx.new_zeros(B, W)
+    tacc = [zero] * len(nz)  # one (B, W) lane accumulator per transition
+    eacc = efx.new_zeros(B, S, 17, W)  # (state, 4*symx+symy | discard, slot)
+
+    xs_rows = sorted({f for cl, f, _ in nz if cl == 0})
+    ys_rows = sorted({f for cl, f, _ in nz if cl == 2})
+    mid_rows = sorted({f for cl, f, _ in nz if cl == 1})
+
+    for ii, _, B_new, invt, _ in _bwd_sweep(
+            t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row,
+            nz, mb, tot):
+        ai = (a[:, ii] != 0)[:, None]
+        b1i = (b1[:, ii] != 0)[:, None]
+        b0i = (b0[:, ii] != 0)[:, None]
+        exa = ex[:, ii] * adj1[:, ii, None]
+        eya = ey[:, ii] * adj1[:, ii, None]
+        ema = em[:, ii] * adj2[:, ii, None]
+        # neighbour rows below diagonal 0 / 1 are zero (their adj is 0)
+        Fm1 = F[:, ii - 1].unbind(1) if ii >= 1 else [zero] * S
+        Fm2 = F[:, ii - 2].unbind(1) if ii >= 2 else [zero] * S
+
+        nxe = {f: torch.where(ai, Fm1[f], _shift_r(Fm1[f])) * exa
+               for f in xs_rows}
+        nye = {f: torch.where(ai, _shift_l(Fm1[f]), Fm1[f]) * eya
+               for f in ys_rows}
+        nme = {f: torch.where(b1i, _shift_l(Fm2[f]),
+                              torch.where(b0i, Fm2[f], _shift_r(Fm2[f])))
+               * ema for f in mid_rows}
+
+        Bw = [B_new[to] * invt for to in range(S)]
+        q = [zero] * S
+        for idx, (cl, f, to) in enumerate(nz):
+            n_e = (nxe[f] if cl == 0 else nme[f] if cl == 1 else nye[f])
+            tacc[idx] = tacc[idx] + n_e * Bw[to]
+            q[to] = q[to] + n_e * tv[cl * S + f][to]
+
+        wxi = wx[:, ii].long()
+        wyi = wy[:, ii].long()
+        sidx = torch.where((wxi < 4) & (wyi < 4), wxi * 4 + wyi, 16)
+        for to in range(S):
+            eacc[:, to].scatter_add_(1, sidx[:, None, :],
+                                     (q[to] * Bw[to])[:, None, :])
+
+    trans = efx.new_zeros(B, S, S)
+    for idx, (cl, f, to) in enumerate(nz):
+        trans[:, f, to] += tacc[idx].sum(dim=-1) * tv[cl * S + f][to]
+    emis = eacc[:, :, :16].sum(dim=-1).reshape(B, S, 4, 4)
+    return trans, emis, mb, tot
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +480,7 @@ def _check_launch(name: str, S: int, W: int, nz, tensors: dict) -> None:
             f"{S}-state structure")
     if not 1 <= W <= MAX_KERNEL_WIDTH:
         raise ValueError(
-            f"{name}: band width {W} outside the kernels' 1..{MAX_KERNEL_WIDTH}")
+            f"{name}: band width {W} outside the kernel's 1..{MAX_KERNEL_WIDTH}")
     dev = None
     for key, (x, dtype, shape) in tensors.items():
         if x.device.type != "cuda":
@@ -475,11 +573,63 @@ def bwd(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row, nz,
     return posts, mb, tot
 
 
+def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
+        b0, pm, end_row, adj1, adj2, wx, wy, nz):
+    """Backward recursion plus expected counts: ``exp_reference`` for CPU
+    tensors, the CUDA kernel ``wavefront_exp`` for CUDA tensors. Same
+    contract as ``exp_reference`` (per-pair trans and emis)."""
+    if efx.device.type == "cpu":
+        return exp_reference(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0,
+                             bm1, bm0, a, b1, b0, pm, end_row, adj1, adj2,
+                             wx, wy, nz)
+    B, R, W = efx.shape
+    S = F.shape[2]
+    f32, i8 = torch.float32, torch.int8
+    row, rows = (B, R, W), (B, R)
+    _check_launch("exp", S, W, nz, {
+        "efx": (efx, f32, row), "efy": (efy, f32, row),
+        "efm": (efm, f32, row), "em": (em, f32, row), "ex": (ex, f32, row),
+        "ey": (ey, f32, row), "F": (F, f32, (B, R, S, W)),
+        "bv": (bv, f32, row), "abw": (abw, i8, rows), "c1": (c1, i8, rows),
+        "c0": (c0, i8, rows), "bm1": (bm1, i8, rows), "bm0": (bm0, i8, rows),
+        "a": (a, i8, rows), "b1": (b1, i8, rows), "b0": (b0, i8, rows),
+        "pm": (pm, i8, row), "end_row": (end_row, f32, (B, S, W)),
+        "adj1": (adj1, f32, rows), "adj2": (adj2, f32, rows),
+        "wx": (wx, i8, row), "wy": (wy, i8, row)})
+    th = _host_transitions(t, S)
+    dev = efx.device
+    trans = torch.empty(B, S, S, dtype=f32, device=dev)
+    emis = torch.empty(B, S, 4, 4, dtype=f32, device=dev)
+    eacc = (torch.empty(B, S * 16, EXP_WIDE_THREADS, dtype=f32, device=dev)
+            if W > EXP_SHARED_WIDTH else None)
+    mb = torch.empty(B, R, dtype=f32, device=dev)
+    tot = torch.empty(B, R, dtype=f32, device=dev)
+    _launch("exp", "cpecan_wavefront_exp", dev, S, _ptr(th), _ptr(efx),
+            _ptr(efy), _ptr(efm), _ptr(em), _ptr(ex), _ptr(ey), _ptr(F),
+            _ptr(bv), _ptr(abw), _ptr(c1), _ptr(c0), _ptr(bm1), _ptr(bm0),
+            _ptr(a), _ptr(b1), _ptr(b0), _ptr(pm), _ptr(end_row), _ptr(adj1),
+            _ptr(adj2), _ptr(wx), _ptr(wy), _ptr(trans), _ptr(emis),
+            _ptr(eacc) if eacc is not None else ctypes.c_void_p(None),
+            _ptr(mb), _ptr(tot), B, R, W)
+    LAUNCHES["exp"] += 1
+    return trans, emis, mb, tot
+
+
 # ---------------------------------------------------------------------------
 # Launcher
 # ---------------------------------------------------------------------------
 
-MODES = ("forward", "posterior_match", "posterior_all")
+MODES = ("forward", "posterior_match", "posterior_all", "expectation")
+
+
+def scale_adjustments(mf):
+    """adj1 = exp(-mf_k)*[k>=1] and adj2 = exp(-(mf_k+mf_{k-1}))*[k>=2],
+    (B, R): the factors that bring F_{k-1} and F_{k-2} into diagonal k's
+    frame (cpecan_tpu/ops/fb_wavefront.py:1132-1138)."""
+    ks = torch.arange(mf.shape[1], device=mf.device)
+    mf_km1 = tF.pad(mf[:, :-1], (1, 0))
+    return (torch.exp(-mf) * (ks >= 1),
+            torch.exp(-(mf + mf_km1)) * (ks >= 2))
 
 
 def fb_pass_batch_wavefront(hmm, sx, sy, offsets, widths, lx, ly,
@@ -490,11 +640,10 @@ def fb_pass_batch_wavefront(hmm, sx, sy, offsets, widths, lx, ly,
 
     Same keys as cpecan_tpu's ``fb_pass_batch_wavefront``: mf and log_fwd,
     plus mb, total_raw and post_match (and post_gap_x/post_gap_y in
-    posterior_all mode), each sliced to P+1 rows. All tensors and the
-    PairHMM must be on one device."""
-    if mode == "expectation":
-        raise NotImplementedError(
-            "expectation mode needs the _exp_kernel port (the EM slice)")
+    posterior_all mode), each sliced to P+1 rows; in expectation mode mb,
+    total_raw and the expected counts trans (S, S) and emis (S, 4, 4)
+    summed over the batch. All tensors and the PairHMM must be on one
+    device."""
     if mode not in MODES:
         raise ValueError(f"wavefront engine does not support mode={mode!r}")
     S = hmm.state_number
@@ -509,7 +658,10 @@ def fb_pass_batch_wavefront(hmm, sx, sy, offsets, widths, lx, ly,
             widths[i:i + bmax], lx[i:i + bmax], ly[i:i + bmax],
             ragged_left[i:i + bmax], ragged_right[i:i + bmax], mode=mode,
             width=W) for i in range(0, B, bmax)]
-        return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+        return {k: (torch.stack([o[k] for o in outs]).sum(dim=0)
+                    if k in ("trans", "emis")
+                    else torch.cat([o[k] for o in outs], dim=0))
+                for k in outs[0]}
 
     pre = precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
                      ragged_right, W)
@@ -525,6 +677,19 @@ def fb_pass_batch_wavefront(hmm, sx, sy, offsets, widths, lx, ly,
 
     out = {"mf": mf, "log_fwd": log_fwd}
     if mode == "forward":
+        return out
+    if mode == "expectation":
+        adj1, adj2 = scale_adjustments(mf)  # row 0 (with m0log) is masked
+        trans, emis, mb, tot = exp(
+            t, pre["efx"], pre["efy"], pre["efm"], pre["em"], pre["ex"],
+            pre["ey"], F, bv, pre["abw"], pre["c1"], pre["c0"], pre["bm1"],
+            pre["bm0"], pre["a"], pre["b1"], pre["b0"], pre["pm"],
+            pre["end_row"], adj1, adj2, pre["wx"], pre["wy"], hmm.nz)
+        out["mb"] = mb
+        out["total_raw"] = tot
+        # the batch sum: a fixed-order reduction of the per-pair counts
+        out["trans"] = trans.sum(dim=0)
+        out["emis"] = emis.sum(dim=0)
         return out
     posts, mb, tot = bwd(t, pre["efx"], pre["efy"], pre["efm"], pre["em"], F,
                          bv, pre["abw"], pre["c1"], pre["c0"], pre["bm1"],

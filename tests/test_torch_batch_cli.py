@@ -214,13 +214,6 @@ def test_realign_cli_matches_jax(case, request, tmp_path):
         assert n.score == pytest.approx(r.score, rel=1e-5, abs=1e-9)
 
 
-def test_output_expectations_is_not_ported_yet(seq_pair, tmp_path):
-    fasta, cigars = seq_pair
-    with pytest.raises(NotImplementedError, match="EM slice"):
-        _realign(port_realign, fasta, cigars, "--outputExpectations",
-                 str(tmp_path / "e.hmm"), "--device", "cpu")
-
-
 def test_device_cuda_without_a_gpu_raises(seq_pair, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fasta, cigars = seq_pair

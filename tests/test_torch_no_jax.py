@@ -1,6 +1,8 @@
-"""The PyTorch port imports no jax: neither directly (AST scan of every
-module) nor through what it imports (a fresh interpreter imports every
-module of the package and checks sys.modules)."""
+"""The PyTorch port imports neither jax nor anything of the JAX package
+(cpecan_tpu), not even a module of it that has no jax in it: neither
+directly (AST scan of every module) nor through what it imports (a fresh
+interpreter imports every module of the package and chip_smoke.py's
+imports, and checks sys.modules)."""
 
 import ast
 import os
@@ -37,7 +39,15 @@ def test_no_module_imports_jax_by_name():
         offenders += [(mod, n) for n in _imported_names(path)
                       if n == "jax" or n.startswith("jax.")]
     assert not offenders
-    assert len(list(_modules())) >= 13
+    assert len(list(_modules())) >= 30
+
+
+def test_no_module_imports_the_jax_package():
+    offenders = []
+    for path, mod in _modules():
+        offenders += [(mod, n) for n in _imported_names(path)
+                      if n == "cpecan_tpu" or n.startswith("cpecan_tpu.")]
+    assert not offenders
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -50,12 +60,12 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_importing_every_module_loads_no_jax():
-    mods = [m for _, m in _modules()]
+    mods = [m for _, m in _modules()] + ["chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib')))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'cpecan_tpu')"
+            " or m.startswith(('jax.', 'jaxlib', 'cpecan_tpu.')))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(_REPO))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
