@@ -30,7 +30,28 @@ Phases (any failure raises, so the exit code is non-zero):
      run's device busy share;
   7. EM card against CPU: 2 iterations on the first 32 records, and
      realign --outputExpectations on them, on the card and with
-     --device cpu: the HMMs must agree.
+     --device cpu: the HMMs must agree;
+  8. long-pair kernels: on a 2 kb evolved pair in windows of 128 rows,
+     the exact streaming engine (posterior, expectation and forward
+     modes: the kernels with carries, k0 phase and F halo) and the
+     burn-in-parallel engine, each through the kernels and again through
+     their plain versions on the same card tensors; the exact engine's
+     scale streams and posteriors against the two-pass kernels';
+  9. long pair: the long_500kb configuration (bench.py:616-622) through
+     pairwise.get_aligned_pairs (the parallel engine), with wall and host
+     seconds, windows, launches and sensitivity/specificity against the
+     planted truth; its longest streamed chunk through the exact engine
+     (seconds, us per diagonal), whose pair set must match the parallel
+     engine's; each kernel site's largest launch on these paths again
+     through the kernel and its plain version (times and bounds);
+ 10. long records: the realign CLI on 100-200 kb records with planted-
+     truth cigars (default decode, and --mea on one), the exact engine
+     against the two-pass kernels on one 100 kb chunk, and card against
+     CPU with every chunk of two 3 kb records made to stream;
+ 11. EM with long records: one 5-state iteration over 2 x 100 kb records
+     and 32 short ones (segmented exp kernel), the exact engine's counts
+     and likelihood on one long chunk against the two-pass kernels', and
+     card against CPU (2 iterations) with every chunk made to stream.
 
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Imports no jax and nothing of cpecan_tpu
@@ -72,6 +93,11 @@ EM_ITERATIONS = 3
 EXP_RTOL = 1e-5
 # card against CPU after EM iterations (tests/test_em.py:139-141)
 EM_RTOL, EM_LIKE_RTOL = 1e-4, 1e-5
+# expected counts of the exact streaming engine against the two-pass
+# kernels on one chunk (tests/test_streaming.py:246-249): the two sum a
+# chunk's 10^4-10^5 diagonals in other orders (per window, then over the
+# windows in float64, against one fp32 running sum per slot)
+SEG_COUNT_RTOL = 1e-3
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and fp32 (non-tensor)
 # operations/s
@@ -106,10 +132,12 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s"
         + ("" if diagnostics else " (already built)"))
     for line in diagnostics.splitlines():
-        m = re.search(r"entry function .*(wavefront_\w{3})ILi(\d)E(?:Li(\d+)E)?",
-                      line)
+        m = re.search(r"entry function .*(wavefront_\w{3})ILi(\d)E(?:Li(\d+)E)?"
+                      r"Lb([01])E", line)
         if m:
-            log(f"  ptxas: {m[1]}<{','.join(g for g in m.groups()[1:] if g)}>")
+            args = [g for g in m.groups()[1:3] if g]
+            args.append("window" if m[4] == "1" else "batch")
+            log(f"  ptxas: {m[1]}<{','.join(args)}>")
         elif "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
@@ -201,11 +229,14 @@ def _batches():
 
 @contextlib.contextmanager
 def _plain_versions():
-    """Route the launcher's kernel wrappers to their plain versions."""
+    """Route the kernel wrappers, for every caller, to their plain
+    versions (which take the same arguments but the launch-count site)."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     saved = wf.fwd, wf.bwd, wf.exp
-    wf.fwd, wf.bwd, wf.exp = wf.fwd_reference, wf.bwd_reference, wf.exp_reference
+    plain = lambda ref: lambda *a, site=None, **kw: ref(*a, **kw)
+    wf.fwd, wf.bwd, wf.exp = (plain(wf.fwd_reference), plain(wf.bwd_reference),
+                              plain(wf.exp_reference))
     try:
         yield
     finally:
@@ -244,11 +275,13 @@ def _max_err(got, want, L):
     return errs
 
 
-def _bound(B, R, W, S, nz, kernel):
+def _bound(B, R, W, S, nz, kernel, window=False):
     """(bound_ms, bound_by) of one call: the larger of the bytes it must
     move (each input read once, each output written once) over HBM's rate
     and its fp32 operations over the fp32 peak. exp reads only pm's
-    row-constant bits (one byte per row), bwd its per-slot bits.
+    row-constant bits (one byte per row), bwd its per-slot bits. A window
+    of a long pair (``window``) reads and writes its carries (and exp its
+    two-row F halo) in place of F0.
     Operations per band slot and diagonal, counted from the kernels'
     arithmetic: fwd 3S neighbour
     x emission products, 2 per transition, 2 per match (bridge)
@@ -271,6 +304,12 @@ def _bound(B, R, W, S, nz, kernel):
         byts = (7 * f32_row + F_bytes + 9 * i8_col + 2 * i8_row + end_bytes
                 + 2 * f32_col + 4 * B * (S * S + S * 16) + 2 * f32_col)
         ops = (3 * S + 2 * len(nz) + S + 2 * S + 3) + 3 * S + S + 4 * len(nz) + 2 * S
+    if window:
+        state = 4 * B * S * W
+        carry = (2 * state + 4 * B if kernel == "fwd"
+                 else 2 * state + 2 * 4 * B * W + 4 * B)
+        byts += 2 * carry - (end_bytes if kernel == "fwd" else 0)
+        byts += 2 * state if kernel == "exp" else 0
     t_bytes, t_ops = byts / PEAK_BYTES, ops * slots / PEAK_F32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -444,10 +483,26 @@ def _realign(fasta, cigars, device, extra):
     return list(realign.cigar_io.cigar_read(stdout))
 
 
+def _check_cigars(out, cigars):
+    """One valid output cigar per input, covering it, with a match."""
+    from cpecan_tpu_torch.cli.realign import cigar_io
+
+    if len(out) != len(cigars):
+        raise AssertionError(f"{len(out)} cigars out for {len(cigars)} in")
+    for o, c in zip(out, cigars):
+        o.check()
+        if ((o.contig1, o.start1, o.end1, o.strand1, o.contig2, o.start2,
+             o.end2, o.strand2) != (c.contig1, c.start1, c.end1, c.strand1,
+                                    c.contig2, c.start2, c.end2, c.strand2)):
+            raise AssertionError(f"output {o} does not cover input {c}")
+        if not any(op == cigar_io.MATCH for op, _ in o.operations):
+            raise AssertionError(f"output {o} has no match")
+
+
 def _run_realign(fasta, cigars, extra, card):
     """The main path on the card, with every kernel's launch count reset
     just before and read just after. Returns (launches, output cigars)."""
-    from cpecan_tpu_torch.cli.realign import cigar_io, metrics
+    from cpecan_tpu_torch.cli.realign import metrics
     from cpecan_tpu_torch.ops import fb_batch
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
@@ -464,16 +519,7 @@ def _run_realign(fasta, cigars, extra, card):
     for k in ("fwd", "bwd"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the main path")
-    if len(out) != len(cigars):
-        raise AssertionError(f"{len(out)} cigars out for {len(cigars)} in")
-    for o, c in zip(out, cigars):
-        o.check()
-        if ((o.contig1, o.start1, o.end1, o.strand1, o.contig2, o.start2,
-             o.end2, o.strand2) != (c.contig1, c.start1, c.end1, c.strand1,
-                                    c.contig2, c.start2, c.end2, c.strand2)):
-            raise AssertionError(f"output {o} does not cover input {c}")
-        if not any(op == cigar_io.MATCH for op, _ in o.operations):
-            raise AssertionError(f"output {o} has no match")
+    _check_cigars(out, cigars)
     snap = metrics.snapshot()
     cells = snap["counters"].get("dp_cells", 0)
     stages = ", ".join(f"{k} {v['seconds']:.2f} s"
@@ -545,13 +591,7 @@ def _compare_card_cpu(fasta, seqs, cigars):
     from cpecan_tpu_torch.models.state_machine import state_machine5
 
     p = realign.alignment_parameters(realign.make_parser().parse_args([fasta]))
-    jobs = []
-    for c in cigars:
-        x, y = seqs[c.contig1], seqs[c.contig2]
-        anchors = realign.filter_anchors_to_matches(
-            realign.cigar_io.alignment_to_anchor_pairs(
-                c, p.constraintDiagonalTrim, p.diagonalExpansion), x, y)
-        jobs.append((x, y, anchors, True, True))
+    jobs = _realign_jobs(seqs, cigars, p)
     sm = state_machine5()
     near_ties, worst_score = set(), 0.0
     for mode in ("posterior_match", "posterior_all"):
@@ -624,7 +664,7 @@ def phase_em_kernel(seqs, cigars, card, summary):
     opts = em_mod.EmOptions()
     p = opts.pairwise_params()
     chunk = em_mod.split_alignments(cigars, opts.maxAlignmentLengthPerJob)[0][0]
-    buckets = em_mod.bucket_tasks(em_mod.tasks_from_cigars(chunk, seqs, p), p)
+    buckets, _ = em_mod.bucket_tasks(em_mod.tasks_from_cigars(chunk, seqs, p), p)
     (P, W), items = max(buckets.items(), key=lambda kv: len(kv[1]))
     args = [torch.from_numpy(a).cuda() for a in em_mod.bucket_arrays(items, P)]
     hmm = PairHMM.from_state_machine(state_machine5()).cuda()
@@ -762,6 +802,645 @@ def phase_em_card_cpu(tmp, fasta, cigars):
         f"{worst[1]:.3g}, likelihood {worst[2]:.3g}")
 
 
+# ------------------------------------------------------------ long pairs
+
+# the long_500kb configuration (bench.py:616-622): one genomic-like pair,
+# planted-truth evolved at 8% substitutions, random.Random(3)
+LONG_PAIR = 500_000
+LONG_RECORDS = (100_000, 150_000, 200_000)
+LONG_EM_RECORDS = (100_000, 100_000)
+FORCED_RECORDS = (3_000, 3_200)  # streamed by a patched budget, card vs CPU
+CHECK_PAIR, CHECK_WINDOW, CHECK_BURNIN = 2_000, 128, 64
+# realign through anchor-free gaps up to 3000 x 3000 (the library's and
+# EM's split), so a long anchored record stays one chunk
+LONG_SPLIT = ["--splitMatrixBiggerThanThis", "3000"]
+
+# launch-count site -> (kernel, TPU kernel site, JSON name)
+SITES = {
+    "fwd": ("fwd", "cpecan_tpu/ops/fb_wavefront.py:235", "wavefront_fwd"),
+    "bwd": ("bwd", "cpecan_tpu/ops/fb_wavefront.py:404", "wavefront_bwd"),
+    "exp": ("exp", "cpecan_tpu/ops/fb_wavefront.py:592", "wavefront_exp"),
+    "seg_fwd": ("fwd", "cpecan_tpu/ops/fb_segmented.py:189",
+                "wavefront_fwd_segmented"),
+    "seg_bwd": ("bwd", "cpecan_tpu/ops/fb_segmented.py:301",
+                "wavefront_bwd_segmented"),
+    "seg_exp": ("exp", "cpecan_tpu/ops/fb_segmented.py:422",
+                "wavefront_exp_segmented"),
+    "par_fwd": ("fwd", "cpecan_tpu/ops/fb_parallel.py:259",
+                "wavefront_fwd_parallel"),
+    "par_bwd": ("bwd", "cpecan_tpu/ops/fb_parallel.py:313",
+                "wavefront_bwd_parallel"),
+}
+LONG_SITES = ("seg_fwd", "seg_bwd", "seg_exp", "par_fwd", "par_bwd")
+
+
+@contextlib.contextmanager
+def _capture(sites):
+    """Keep, for each launch-count site in ``sites``, the arguments of its
+    largest wrapper call while the block runs (every call goes through).
+    Yields {site: (args, kwargs)}."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    saved = wf.fwd, wf.bwd, wf.exp
+    kept, sizes = {}, {}
+
+    def wrap(fn, default):
+        def call(*args, site=default, **kw):
+            out = fn(*args, site=site, **kw)
+            if site in sites and args[1].numel() > sizes.get(site, -1):
+                kept[site], sizes[site] = (args, kw), args[1].numel()
+            return out
+        return call
+
+    wf.fwd, wf.bwd, wf.exp = (wrap(saved[0], "fwd"), wrap(saved[1], "bwd"),
+                              wrap(saved[2], "exp"))
+    try:
+        yield kept
+    finally:
+        wf.fwd, wf.bwd, wf.exp = saved
+
+
+def _flat(out, prefix="out"):
+    """Named tensors of a wrapper's (nested) outputs."""
+    if torch.is_tensor(out):
+        return [(prefix, out)]
+    return [t for i, o in enumerate(out) for t in _flat(o, f"{prefix}.{i}")]
+
+
+# output index -> tolerance key, per kernel (the rest: F, bv, carries)
+_OUT_KEYS = {"fwd": {"out.2": "mf"},
+             "bwd": {"out.0.0": "post_match", "out.0.1": "post_gap_x",
+                     "out.0.2": "post_gap_y", "out.1": "mb", "out.2": "total_raw"},
+             "exp": {"out.0": "counts", "out.1": "counts", "out.2": "exp_rows",
+                     "out.3": "exp_rows"}}
+
+
+def _check_site(site, entry, S, nz, what, card, reps=5):
+    """One captured launch of ``site`` again, on its own inputs (tensors on
+    the card), through the kernel and through its plain version: outputs
+    within the tolerances (TOLERANCES; counts EXP_RTOL; F, bv and the
+    carries rtol 1e-4 against a row max of 1), CUDA-event medians of both,
+    and the bound. Returns (max_abs_err, ms, plain_ms, (bound_ms, by))."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    kind = SITES[site][0]
+    args, kw = entry
+    kern = getattr(wf, kind)
+    plain = getattr(wf, f"{kind}_reference")
+    got = _flat(kern(*args, site=site, **kw))
+    want = _flat(plain(*args, **kw))
+    torch.cuda.synchronize()
+    err = 0.0
+    for (name, g), (_, w_) in zip(got, want):
+        g, w_ = g.float().cpu(), w_.float().cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{site} output {name} is not finite")
+        key = _OUT_KEYS[kind].get(name)
+        if key == "counts":
+            tol = (EXP_RTOL, 1e-6)
+        elif key == "exp_rows":
+            tol = (0.0, 1e-5)
+        else:
+            tol = TOLERANCES.get(key, (1e-4, 1e-6))
+        torch.testing.assert_close(g, w_, rtol=tol[0], atol=tol[1],
+                                   msg=f"{site} {name}")
+        err = max(err, float((g - w_).abs().max()) if g.numel() else 0.0)
+    ms = _median_ms(lambda: kern(*args, site=site, **kw), reps)
+    plain_ms = _median_ms(lambda: plain(*args, **kw), 1)
+    B, R, W = args[1].shape
+    bound = _bound(B, R, W, S, nz, kind, window=True)
+    log(f"  {site} at {what}: B={B} R={R} W={W}; kernel {ms:.3f} ms "
+        f"({1e3 * ms / R:.2f} us per diagonal), plain {plain_ms:.1f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]}), max abs err {err:.3g} ({card})")
+    return err, ms, plain_ms, bound
+
+
+def _dense(entries, rows, W):
+    vals, ks, js = entries
+    out = np.zeros((rows, W))
+    out[ks, js] = vals
+    return out
+
+
+def _compare_streams(got, want, L, W, what, count_rtol=EXP_RTOL):
+    """Exact-engine outputs against another run's: scale streams and
+    posteriors within TOLERANCES, counts within ``count_rtol``. Returns
+    the largest absolute difference."""
+    errs = {}
+    for k in ("mf", "mb", "total_raw"):
+        if k in want:
+            a, b = np.asarray(got[k][1:L + 1]), np.asarray(want[k][1:L + 1])
+            np.testing.assert_allclose(a, b, *TOLERANCES[k], err_msg=f"{what} {k}")
+            errs[k] = float(np.abs(a - b).max())
+    if "log_fwd" in want:
+        lf = lambda o: o["log_fwd"] + np.sum(o["mf"][:L + 1], dtype=np.float64)
+        np.testing.assert_allclose(lf(got), lf(want), rtol=1e-6, atol=1e-4,
+                                   err_msg=f"{what} log-likelihood")
+    for k in ("trans", "emis"):
+        if k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=count_rtol,
+                                       atol=1e-6, err_msg=f"{what} {k}")
+            errs[k] = float(np.abs(got[k] - want[k]).max())
+            errs[k + "_rel"] = float(np.max(np.abs(got[k] - want[k])
+                                            / np.maximum(np.abs(want[k]), 1e-30)))
+    for k, entries in want.get("post_entries", {}).items():
+        a = _dense(got["post_entries"][k], L + 1, W)
+        b = _dense(entries, L + 1, W)
+        np.testing.assert_allclose(a, b, *TOLERANCES[k], err_msg=f"{what} {k}")
+        errs[k] = float(np.abs(a - b).max())
+    log(f"  {what}: max abs " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return max((v for k, v in errs.items() if not k.endswith("_rel")),
+               default=0.0)
+
+
+def _stream(hmm, x, y, band, mode, W, window, burnin, engine, threshold=0.0):
+    from cpecan_tpu_torch.ops import fb_streaming
+    from cpecan_tpu_torch.utils.symbols import encode
+
+    return fb_streaming.fb_pass_streaming(
+        hmm, encode(x), encode(y), band.offsets, band.widths, len(x), len(y),
+        False, False, mode, W, window, burnin, threshold=threshold,
+        engine=engine)
+
+
+def _two_pass(hmm, x, y, band, mode, W):
+    """The batch path's kernels on one pair as a batch of one, in the
+    streaming engines' return contract."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+    from cpecan_tpu_torch.ops.band import pad_band
+    from cpecan_tpu_torch.utils.symbols import encode
+
+    L = len(x) + len(y)
+    o, w, _ = pad_band(band, L, W)
+    args = [torch.from_numpy(np.asarray(a)).to(hmm.t.device) for a in (
+        encode(x)[None], encode(y)[None], o[None], w[None], [len(x)],
+        [len(y)], [False], [False])]
+    out = wf.fb_pass_batch_wavefront(hmm, *args, mode=mode, width=W)
+    res = {"log_fwd": float(out["log_fwd"][0]), "post_entries": {}}
+    for k in ("mf", "mb", "total_raw"):
+        if k in out:
+            res[k] = out[k][0].double().cpu().numpy()
+    for k in ("trans", "emis"):
+        if k in out:
+            res[k] = out[k].double().cpu().numpy()
+    for k in ("post_match", "post_gap_x", "post_gap_y"):
+        if k in out:
+            ks, js = torch.nonzero(out[k][0] >= 1e-9, as_tuple=True)
+            res["post_entries"][k] = tuple(
+                v.cpu().numpy() for v in (out[k][0, ks, js], ks, js))
+    return res
+
+
+def _likelihood(o, L):
+    """A chunk's EM likelihood contribution (em.py's float64
+    recombination of the per-diagonal totals)."""
+    cf = np.cumsum(np.asarray(o["mf"][:L + 1], np.float64))
+    cb = np.cumsum(np.asarray(o["mb"][:L + 1], np.float64)[::-1])[::-1]
+    return float(np.sum(np.asarray(o["total_raw"][1:L + 1], np.float64)
+                        + cf[1:] + cb[1:]))
+
+
+def phase_long_kernels(card, sites):
+    """Kernels with carries against their plain versions on a 2 kb
+    evolved pair (windows of CHECK_WINDOW rows, tens of them): the exact
+    engine in every mode and the parallel engine, each run through the
+    kernels and again through their plain versions on the same card
+    tensors; the exact engine's scale streams and posteriors against the
+    two-pass kernels'. Per site: the error and one window launch's time."""
+    from cpecan_tpu_torch.align.anchors import get_anchors
+    from cpecan_tpu_torch.align.pairwise import _width_bucket
+    from cpecan_tpu_torch.config import PairwiseAlignmentParameters
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_parallel
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+    from cpecan_tpu_torch.ops.band import construct_band
+    from cpecan_tpu_torch.utils.symbols import encode
+
+    rng = np.random.default_rng(7)
+    x = _ACGT[rng.integers(0, 4, CHECK_PAIR)].tobytes().decode()
+    y = _evolve(x, rng)
+    p = PairwiseAlignmentParameters()
+    band = construct_band([(int(a[0]), int(a[1])) for a in get_anchors(x, y, p)],
+                          len(x), len(y), p.diagonalExpansion)
+    W = _width_bucket(band.frame_width())
+    L = len(x) + len(y)
+    sm = state_machine5()
+    hmm = PairHMM.from_state_machine(sm).cuda()
+    log(f"long-pair kernels: a {len(x)} x {len(y)} evolved pair, W={W}, "
+        f"{-(-L // CHECK_WINDOW)} windows of {CHECK_WINDOW} rows (burn-in "
+        f"{CHECK_BURNIN} for the parallel engine)")
+    exact = None
+    for mode, engine in (("posterior_all", "exact"), ("expectation", "exact"),
+                         ("forward", "exact"), ("posterior_all", "parallel")):
+        if engine == "exact":
+            run = lambda: _stream(hmm, x, y, band, mode, W, CHECK_WINDOW,
+                                  CHECK_BURNIN, engine)
+        else:
+            run = lambda: fb_parallel.fb_pass_parallel(
+                hmm, encode(x), encode(y), band.offsets, band.widths, len(x),
+                len(y), False, False, mode, W, burnin=CHECK_BURNIN,
+                threshold=0.0, window=CHECK_WINDOW)
+        wf.reset_launch_counts()
+        with _capture(LONG_SITES) as kept:
+            got = run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in wf.LAUNCHES.items() if v}
+        with _plain_versions():
+            want = run()
+        err = _compare_streams(got, want, L, W,
+                               f"{engine} {mode} kernels vs plain ({launches})")
+        for site, entry in kept.items():
+            e, ms, _, _ = _check_site(site, entry, sm.state_number, hmm.nz,
+                                      "one 2 kb window", card, reps=10)
+            sites[site]["err"] = max(sites[site]["err"], err, e)
+            sites[site]["ms_2kb"] = ms
+        if (mode, engine) == ("posterior_all", "exact"):
+            exact = got
+    two = _two_pass(hmm, x, y, band, "posterior_all", W)
+    _compare_streams(exact, two, L, W, "exact engine vs two-pass kernels")
+    torch.cuda.empty_cache()
+
+
+def _truth_cigar(truth, lx, ly, names, cigar_io):
+    """A planted-truth alignment as a cigar record (runs of aligned pairs,
+    gaps between them)."""
+    ops = []
+
+    def push(op, n):
+        if n > 0:
+            if ops and ops[-1][0] == op:
+                ops[-1] = (op, ops[-1][1] + n)
+            else:
+                ops.append((op, n))
+
+    px = py = -1
+    for tx, ty in truth:
+        push(cigar_io.INDEL_X, tx - px - 1)
+        push(cigar_io.INDEL_Y, ty - py - 1)
+        push(cigar_io.MATCH, 1)
+        px, py = tx, ty
+    push(cigar_io.INDEL_X, lx - px - 1)
+    push(cigar_io.INDEL_Y, ly - py - 1)
+    return cigar_io.PairwiseAlignment(names[0], 0, lx, True, names[1], 0, ly,
+                                      True, 0.0, ops)
+
+
+def _planted_records(lengths, seed, prefix):
+    """Genomic-like records (upper case) evolved at 8% substitutions with
+    their planted-truth cigars: (sequences, cigars)."""
+    import random
+
+    from cpecan_tpu_torch.cli.realign import cigar_io
+    from cpecan_tpu_torch.utils.symbols import genomic_like_sequence, tracked_evolve
+
+    rng = random.Random(seed)
+    seqs, cigars = {}, []
+    for i, n in enumerate(lengths):
+        x = genomic_like_sequence(n, rng).upper()
+        y, truth = tracked_evolve(x, rng, sub_rate=0.08)
+        names = (f"{prefix}x{i}", f"{prefix}y{i}")
+        seqs[names[0]], seqs[names[1]] = x, y
+        cigars.append(_truth_cigar(truth, len(x), len(y), names, cigar_io))
+    return seqs, cigars
+
+
+def _streamed_tasks(jobs, p):
+    """The chunks of ``jobs`` that the batch path streams, longest first:
+    [(task, band, W)]."""
+    from cpecan_tpu_torch.align import batch
+    from cpecan_tpu_torch.align.pairwise import _width_bucket
+    from cpecan_tpu_torch.ops import fb_streaming
+
+    out = []
+    for t in batch._expand_jobs(jobs, p):
+        band = batch._band_of(t, p)
+        W = _width_bucket(band.frame_width())
+        if fb_streaming.should_stream(band.diagonal_number, W):
+            out.append((t, band, W))
+    return sorted(out, key=lambda e: -e[1].diagonal_number)
+
+
+def _same_pair_sets(a, b, what):
+    """test_parallel.py:122-138's tolerance: symmetric difference at most
+    max(2, 2%), common pairs within 2e-2 (fixed point, units of 1e7)."""
+    ka = {(int(x), int(y)): int(q) for q, x, y in zip(a["prob"], a["x"], a["y"])}
+    kb = {(int(x), int(y)): int(q) for q, x, y in zip(b["prob"], b["x"], b["y"])}
+    sym = ka.keys() ^ kb.keys()
+    if len(sym) > max(2, len(kb) // 50):
+        raise AssertionError(f"{what}: {len(sym)} of {len(kb)} pairs differ")
+    worst = max((abs(ka[k] - kb[k]) for k in ka.keys() & kb.keys()), default=0)
+    if worst >= 2e-2 * 1e7 + 30:
+        raise AssertionError(f"{what}: a pair probability differs by {worst}/1e7")
+    log(f"  {what}: {len(kb)} pairs, {len(sym)} differ, max prob diff "
+        f"{worst}/1e7")
+
+
+def phase_long_pair(card, sites):
+    """The long_500kb configuration through get_aligned_pairs on the card
+    (anchors, split, streaming through the parallel engine, decode), then
+    its longest streamed chunk through the exact engine; the two engines'
+    pair sets must agree. Captures the full-size launches of sites 4, 5,
+    7 and 8 and checks them against their plain versions."""
+    import random
+
+    from cpecan_tpu_torch.align import batch, pairwise
+    from cpecan_tpu_torch.align.anchors import get_anchors
+    from cpecan_tpu_torch.config import PairwiseAlignmentParameters
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.msa.aligner import (
+        filter_pairwise_alignment_to_make_pairs_ordered)
+    from cpecan_tpu_torch.ops import fb_parallel, fb_streaming
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+    from cpecan_tpu_torch.ops import pairs as pairs_mod
+    from cpecan_tpu_torch.utils import metrics
+    from cpecan_tpu_torch.utils.symbols import (
+        genomic_like_sequence, tracked_evolve)
+
+    rng = random.Random(3)
+    x = genomic_like_sequence(LONG_PAIR, rng)
+    y, truth = tracked_evolve(x, rng, sub_rate=0.08)
+    sm, p = state_machine5(), PairwiseAlignmentParameters()
+    hmm = PairHMM.from_state_machine(sm).cuda()
+    metrics.reset()
+    torch.cuda.synchronize()
+    wf.reset_launch_counts()
+    with _capture(("par_fwd", "par_bwd")) as kept:
+        t0 = time.perf_counter()
+        pairs = pairwise.get_aligned_pairs(sm, x, y, p, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(wf.LAUNCHES)
+    snap = metrics.snapshot()
+    st, ctr = snap["stages"], snap["counters"]
+    host = sum(st.get(k, {}).get("seconds", 0.0)
+               for k in ("host_anchoring", "host_prep"))
+    if fb_streaming.LAST_ENGINE != "parallel":
+        raise AssertionError(f"streaming engine {fb_streaming.LAST_ENGINE!r}")
+    for k in ("par_fwd", "par_bwd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched by the 500 kb path")
+    ordered = filter_pairwise_alignment_to_make_pairs_ordered(
+        pairs_mod.sort_pairs(pairs), x, y, 0.9)
+    pred = {(int(a), int(b)) for a, b in zip(ordered["x"], ordered["y"])}
+    tp = len(pred & set(truth))
+    sens, spec = tp / max(len(truth), 1), tp / max(len(pred), 1)
+    if not sens > 0.5:
+        raise AssertionError(f"500 kb sensitivity {sens}")
+    log(f"long pair {len(x)} x {len(y)} (long_500kb) on {card}: "
+        f"get_aligned_pairs {wall:.2f} s wall, host (anchoring + prep) "
+        f"{host:.2f} s, fb_stream {st.get('fb_stream', {}).get('seconds', 0):.2f} s; "
+        f"{ctr.get('streamed_chunks', 0)} streamed chunks, "
+        f"{ctr.get('stream_windows', 0)} windows, {ctr.get('dp_cells', 0)} "
+        f"DP cells; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {len(pairs)} pairs; "
+        f"sensitivity {sens:.4f}, specificity {spec:.4f}")
+    sites["par_fwd"]["launches"] = launches["par_fwd"]
+    sites["par_bwd"]["launches"] = launches["par_bwd"]
+    for site, entry in kept.items():
+        e, ms, plain_ms, bound = _check_site(
+            site, entry, 5, hmm.nz, "the 500 kb path's largest slice", card)
+        sites[site].update(err=max(sites[site]["err"], e), ms=ms,
+                           plain_ms=plain_ms, bound=bound)
+    del kept
+
+    # the longest streamed chunk through both engines
+    t, band, W = _streamed_tasks([(x, y, get_anchors(x, y, p), False, False)], p)[0]
+    L = band.diagonal_number
+    args = (hmm, t.sub_x, t.sub_y, band, "posterior_match", W,
+            fb_streaming.window_rows(p), fb_parallel.burnin_rows(p))
+    if W > wf.MAX_KERNEL_WIDTH:
+        raise AssertionError(f"the longest chunk has W={W} > the kernels' "
+                             f"{wf.MAX_KERNEL_WIDTH}")
+    torch.cuda.synchronize()
+    wf.reset_launch_counts()
+    with _capture(("seg_fwd", "seg_bwd")) as kept:
+        t0 = time.perf_counter()
+        ex_out = _stream(*args, "exact", threshold=p.threshold)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(wf.LAUNCHES)
+    for k in ("seg_fwd", "seg_bwd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched by the exact engine")
+        sites[k]["launches"] = launches[k]
+    par_out = _stream(*args, "parallel", threshold=p.threshold)
+    log(f"  longest streamed chunk: {len(t.sub_x)} x {len(t.sub_y)}, "
+        f"L={L}, W={W}: exact engine {dt:.3f} s on {card} "
+        f"({1e6 * dt / L:.2f} us per diagonal, {ex_out['windows']} windows "
+        f"of {fb_streaming.window_rows(p)}), launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    to_pairs = lambda o: batch._stream_entries_to_pairs(
+        o["post_entries"]["post_match"], o["xoff"], L, 0, 0)
+    _same_pair_sets(to_pairs(par_out), to_pairs(ex_out),
+                    "parallel vs exact engine on that chunk")
+    for site, entry in kept.items():
+        e, ms, plain_ms, bound = _check_site(
+            site, entry, 5, hmm.nz, "the exact engine on that chunk", card)
+        sites[site].update(err=max(sites[site]["err"], e), ms=ms,
+                           plain_ms=plain_ms, bound=bound)
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "host_s": host, "exact_s": dt, "L": L}
+
+
+def _realign_jobs(seqs, cigars, p):
+    """The batch jobs realign builds from cigar records: anchors from the
+    cigars' match runs, filtered to exact base matches, ragged ends."""
+    from cpecan_tpu_torch.cli import realign
+
+    jobs = []
+    for c in cigars:
+        x, y = seqs[c.contig1], seqs[c.contig2]
+        anchors = realign.filter_anchors_to_matches(
+            realign.cigar_io.alignment_to_anchor_pairs(
+                c, p.constraintDiagonalTrim, p.diagonalExpansion), x, y)
+        jobs.append((x, y, anchors, True, True))
+    return jobs
+
+
+@contextlib.contextmanager
+def _forced_streaming():
+    """Every chunk streams (a 1-byte budget)."""
+    from cpecan_tpu_torch.ops import fb_streaming
+
+    saved = fb_streaming._STREAM_BUDGET
+    fb_streaming._STREAM_BUDGET = 1
+    try:
+        yield
+    finally:
+        fb_streaming._STREAM_BUDGET = saved
+
+
+def _write_fasta(path, seqs):
+    with open(path, "w") as fh:
+        for k, v in seqs.items():
+            fh.write(f">{k}\n{v}\n")
+
+
+def phase_long_realign(card, tmp):
+    """The realign CLI on long records (planted-truth cigars, so the band
+    follows the alignment; split at 3000 x 3000 so each record stays one
+    chunk that streams): default decode on all, --mea on the first. Then
+    the first record's chunk through the exact engine against the two-pass
+    kernels, and card against CPU on short records whose every chunk is
+    made to stream."""
+    from cpecan_tpu_torch.align import batch
+    from cpecan_tpu_torch.cli import realign
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_parallel, fb_streaming
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+    from cpecan_tpu_torch.utils import metrics
+
+    seqs, cigars = _planted_records(LONG_RECORDS, 11, "long")
+    fasta = f"{tmp}/long.fa"
+    _write_fasta(fasta, seqs)
+    bases = {c.contig1: c.end1 - c.start1 for c in cigars}
+    for extra, recs in (([], cigars), (["--mea"], cigars[:1])):
+        metrics.reset()
+        torch.cuda.synchronize()
+        wf.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = _realign(fasta, recs, "cuda", LONG_SPLIT + extra)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in wf.LAUNCHES.items() if v}
+        if fb_streaming.LAST_ENGINE != "parallel" or not (
+                launches.get("par_fwd") and launches.get("par_bwd")):
+            raise AssertionError(f"long records did not stream through the "
+                                 f"parallel engine: {launches}")
+        _check_cigars(out, recs)
+        snap = metrics.snapshot()
+        stages = ", ".join(f"{k} {v['seconds']:.2f} s"
+                           for k, v in sorted(snap["stages"].items()))
+        n_bases = sum(bases[c.contig1] for c in recs)
+        log(f"long records realign {' '.join(extra) or '(default)'}: "
+            f"{len(recs)} records of {', '.join(str(bases[c.contig1]) for c in recs)} "
+            f"bases in {dt:.2f} s on {card}: {len(recs) / dt:.3f} records/s, "
+            f"{n_bases / dt:.4g} bases/s; streamed chunks "
+            f"{snap['counters'].get('streamed_chunks', 0)}, windows "
+            f"{snap['counters'].get('stream_windows', 0)}; stages {stages}; "
+            f"launches {launches}")
+
+    p = realign.alignment_parameters(
+        realign.make_parser().parse_args([fasta] + LONG_SPLIT))
+    sm = state_machine5()
+    hmm = PairHMM.from_state_machine(sm).cuda()
+    t, band, W = _streamed_tasks(_realign_jobs(seqs, cigars[:1], p), p)[0]
+    L = band.diagonal_number
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = _stream(hmm, t.sub_x, t.sub_y, band, "posterior_match", W,
+                 fb_streaming.window_rows(p), fb_parallel.burnin_rows(p),
+                 "exact")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    two = _two_pass(hmm, t.sub_x, t.sub_y, band, "posterior_match", W)
+    _compare_streams(ex, two, L, W,
+                     f"record 0's chunk (L={L}, W={W}, F "
+                     f"{(L + 1) * 5 * W * 4 / 1e6:.0f} MB two-pass): exact "
+                     f"engine ({dt:.3f} s, {1e6 * dt / L:.2f} us per "
+                     f"diagonal) vs two-pass kernels")
+    del two
+    torch.cuda.empty_cache()
+
+    fseqs, fcigars = _planted_records(FORCED_RECORDS, 13, "forced")
+    jobs = _realign_jobs(fseqs, fcigars, p)
+    with _forced_streaming():
+        card_pairs = batch.batch_posteriors(sm, jobs, p, device="cuda")
+        engines = [fb_streaming.LAST_ENGINE]
+        cpu_pairs = batch.batch_posteriors(sm, jobs, p, device="cpu")
+        engines.append(fb_streaming.LAST_ENGINE)
+    if engines != ["parallel", "exact"]:
+        raise AssertionError(f"forced streaming ran engines {engines}")
+    for i, (a, b) in enumerate(zip(card_pairs, cpu_pairs)):
+        _same_pair_sets(a, b, f"forced streaming record {i} "
+                              f"({FORCED_RECORDS[i]} bases): card parallel vs "
+                              f"CPU exact")
+
+
+def phase_long_em(card, tmp, short_seqs, short_cigars, sites):
+    """EM on a corpus with long records: one 5-state iteration of the EM
+    CLI on the card (long chunks stream through the segmented exp
+    kernel); the exact engine's counts and likelihood on one long chunk
+    against the two-pass kernels'; card against CPU (2 iterations) on
+    short records whose every chunk is made to stream."""
+    from cpecan_tpu_torch.em import em as em_mod
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_parallel, fb_streaming
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+    from cpecan_tpu_torch.utils import metrics
+
+    lseqs, lcigars = _planted_records(LONG_EM_RECORDS, 17, "em")
+    seqs = {**short_seqs, **lseqs}
+    cigars = lcigars + short_cigars[:COMPARE_RECORDS]
+    fasta, cig = f"{tmp}/em_long.fa", f"{tmp}/em_long.cigar"
+    _write_fasta(fasta, seqs)
+    _write_cigars(cig, cigars)
+    metrics.reset()
+    torch.cuda.synchronize()
+    wf.reset_launch_counts()
+    with _capture(("seg_exp",)) as kept:
+        t0 = time.perf_counter()
+        model = _em(fasta, cig, f"{tmp}/em_long.hmm", "cuda",
+                    ["--modelType", "fiveState", "--iterations", "1"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = {k: v for k, v in wf.LAUNCHES.items() if v}
+    for k in ("seg_fwd", "seg_exp"):
+        if not launches.get(k):
+            raise AssertionError(f"{k} was not launched by the EM path: {launches}")
+    if not (np.isfinite(model.likelihood)
+            and np.all(np.isfinite(model.running_likelihoods))):
+        raise AssertionError(f"EM likelihood {model.likelihood} is not finite")
+    snap = metrics.snapshot()
+    stages = ", ".join(f"{k} {v['seconds']:.2f} s"
+                       for k, v in sorted(snap["stages"].items()))
+    log(f"long records em: {len(lcigars)} records of {LONG_EM_RECORDS} bases "
+        f"and {COMPARE_RECORDS} of 1 kb, 1 iteration in {dt:.2f} s on {card}; "
+        f"streamed chunks {snap['counters'].get('streamed_chunks', 0)}; "
+        f"stages {stages}; likelihood {model.likelihood}; launches {launches}")
+    sites["seg_exp"]["launches"] = launches["seg_exp"]
+    sm = state_machine5()
+    hmm = PairHMM.from_state_machine(sm).cuda()
+    e, ms, plain_ms, bound = _check_site(
+        "seg_exp", kept["seg_exp"], 5, hmm.nz, "the EM path's long chunk", card)
+    sites["seg_exp"].update(err=max(sites["seg_exp"]["err"], e), ms=ms,
+                            plain_ms=plain_ms, bound=bound)
+    del kept
+
+    p = em_mod.EmOptions().pairwise_params()
+    _, streamed = em_mod.bucket_tasks(
+        em_mod.tasks_from_cigars(lcigars[:1], seqs, p), p)
+    t, band, W = max(streamed, key=lambda e: e[1].diagonal_number)
+    L = band.diagonal_number
+    ex = _stream(hmm, t.sub_x, t.sub_y, band, "expectation", W,
+                 fb_streaming.window_rows(p), fb_parallel.burnin_rows(p),
+                 "exact")
+    two = _two_pass(hmm, t.sub_x, t.sub_y, band, "expectation", W)
+    _compare_streams(ex, two, L, W, f"EM chunk (L={L}, W={W}): exact engine "
+                                    f"vs two-pass kernels", SEG_COUNT_RTOL)
+    la, lb = _likelihood(ex, L), _likelihood(two, L)
+    if abs(la - lb) > EM_LIKE_RTOL * abs(lb):
+        raise AssertionError(f"EM chunk likelihood {la} (exact) vs {lb}")
+    log(f"  its likelihood contribution {la} vs {lb} (two-pass): "
+        f"{abs(la - lb) / abs(lb):.3g} relative")
+    torch.cuda.empty_cache()
+
+    fseqs, fcigars = _planted_records(FORCED_RECORDS, 19, "emforced")
+    ffasta, fcig = f"{tmp}/em_forced.fa", f"{tmp}/em_forced.cigar"
+    _write_fasta(ffasta, fseqs)
+    _write_cigars(fcig, fcigars)
+    with _forced_streaming():
+        models = [_em(ffasta, fcig, f"{tmp}/em_forced_{d}.hmm", d,
+                      ["--iterations", "2"]) for d in ("cuda", "cpu")]
+    worst = _close_hmms(*models, "em forced streaming card vs CPU")
+    np.testing.assert_allclose(models[0].running_likelihoods,
+                               models[1].running_likelihoods, rtol=EM_LIKE_RTOL)
+    log(f"card vs CPU em, every chunk streamed: {len(fcigars)} records of "
+        f"{FORCED_RECORDS} bases, 2 iterations; max relative difference "
+        f"transitions {worst[0]:.3g}, emissions {worst[1]:.3g}, likelihood "
+        f"{worst[2]:.3g}")
+
+
 def _no_jax_package():
     bad = sorted(m for m in sys.modules if m in ("jax", "cpecan_tpu")
                  or m.startswith(("jax.", "cpecan_tpu.")))
@@ -798,21 +1477,32 @@ def main() -> int:
             "--modelType", "threeState", "--iterations", "1"], card)
         phase_em_profile(fasta, cig, tmp, card)
         phase_em_card_cpu(tmp, fasta, some)
+
+        sites = {k: {"err": 0.0} for k in LONG_SITES}
+        phase_long_kernels(card, sites)
+        phase_long_pair(card, sites)
+        phase_long_realign(card, tmp)
+        phase_long_em(card, tmp, seqs, cigars, sites)
     _no_jax_package()
 
     # launches: fwd and bwd from the realign main path, exp from the EM
-    # main path (fwd launched there too: em_launches)
-    source = "cpecan_tpu_torch/csrc/wavefront.cu"
-    replaces = {"fwd": 235, "bwd": 404, "exp": 592}
+    # main path (fwd launched there too: em_launches); the long-pair sites
+    # from the 500 kb path (parallel), the exact engine on its longest
+    # chunk (segmented fwd, bwd) and the EM path with long records
+    # (segmented exp)
     runs = {"fwd": launches, "bwd": launches, "exp": em_launches}
-    kernels = [
-        {"name": f"wavefront_{k}", "route": "cuda", "source": source,
-         "replaces": f"cpecan_tpu/ops/fb_wavefront.py:{replaces[k]}",
-         "launches": runs[k][k], "max_abs_err": summary[k]["err"],
-         "ms": summary[k]["ms"], "plain_ms": summary[k]["plain_ms"],
-         "bound_ms": summary[k]["bound"][0],
-         "bound_by": summary[k]["bound"][1], "library_ms": None}
-        for k in ("fwd", "bwd", "exp")]
+    for k in ("fwd", "bwd", "exp"):
+        sites[k] = {"launches": runs[k][k], **summary[k]}
+    kernels = []
+    for k, (_, replaces, name) in SITES.items():
+        v = sites[k]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "cpecan_tpu_torch/csrc/wavefront.cu",
+            "replaces": replaces, "launches": v["launches"],
+            "max_abs_err": v["err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound"][0], "bound_by": v["bound"][1],
+            "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ the posterior blocks are thresholded and compacted on the device, and
 only the entries above threshold come back to the host, where they
 scatter to their jobs with the chunk coordinate shifts.
 
-Chunks long enough to need the checkpointed streaming engine raise
-NotImplementedError: that engine belongs to the long-pair slice.
+Chunks too long for the two-pass engine (``fb_streaming.should_stream``)
+run one at a time through the streaming engines (ops/fb_streaming.py):
+on the card the burn-in-parallel engine, on the CPU the exact one.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from cpecan_tpu_torch.align.pairwise import (
     _bucket, _iterate_chunks, _width_bucket)
 from cpecan_tpu_torch.models.state_machine import PairHMM
 from cpecan_tpu_torch.ops import compact as compact_mod
-from cpecan_tpu_torch.ops import fb_batch
+from cpecan_tpu_torch.ops import fb_batch, fb_parallel, fb_streaming
+from cpecan_tpu_torch.ops.fb_streaming import should_stream
 
 
 @dataclasses.dataclass
@@ -42,18 +44,6 @@ class _Task:
     anchors: list
     ragged_left: bool
     ragged_right: bool
-
-
-# Chunks whose two-pass resident tensors (~3 copies of (P+1, S, W) fp32)
-# would exceed this many bytes go to the streaming engine
-# (cpecan_tpu/ops/fb_streaming.py should_stream, at its default budget).
-_STREAM_BUDGET = 1 << 30
-
-
-def should_stream(diagonal_number: int, width: int,
-                  state_number: int = 5) -> bool:
-    resident = 3 * (diagonal_number + 1) * state_number * max(width, 128) * 4
-    return resident > _STREAM_BUDGET
 
 
 def _count_above(post, thr) -> int:
@@ -110,6 +100,39 @@ def _batch_bucket_size(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _stream_entries_to_pairs(entries, xoff, L, ox, oy):
+    """Streaming-engine posterior entries -> pair array with the chunk
+    coordinate shift (the fixed-point semantics of _sparse_to_pairs_batch)."""
+    from cpecan_tpu_torch.utils.logmath import PAIR_ALIGNMENT_PROB_1
+
+    vals, ks, js = entries
+    keep = ks <= L
+    vals, ks, js = vals[keep], ks[keep], js[keep]
+    xs = xoff[ks] + js
+    ys = ks - xs
+    prob = np.minimum(vals.astype(np.float64), 1.0)
+    return pairs_mod.make_pairs(
+        np.floor(prob * PAIR_ALIGNMENT_PROB_1).astype(np.int64),
+        xs - 1 + ox, ys - 1 + oy)
+
+
+def _run_streaming_task(hmm, t, band, p, mode, keys):
+    """One long chunk through the streaming engine on the PairHMM's
+    device, in fixed memory for any chunk length."""
+    W = _width_bucket(band.frame_width())
+    out = fb_streaming.fb_pass_streaming(
+        hmm, encode(t.sub_x), encode(t.sub_y), band.offsets, band.widths,
+        len(t.sub_x), len(t.sub_y), t.ragged_left, t.ragged_right, mode, W,
+        fb_streaming.window_rows(p), fb_parallel.burnin_rows(p),
+        threshold=p.threshold)
+    metrics.add("dp_cells", int(band.widths.sum()))
+    metrics.add("streamed_chunks", 1)
+    metrics.add("stream_windows", out["windows"])
+    return [_stream_entries_to_pairs(out["post_entries"][k], out["xoff"],
+                                     band.diagonal_number, t.x1, t.y1)
+            for k in keys]
 
 
 def _expand_jobs(jobs, p):
@@ -169,10 +192,11 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
             band = _band_of(t, p)
             W = _width_bucket(band.frame_width())
         if should_stream(band.diagonal_number, W):
-            raise NotImplementedError(
-                f"a chunk of {band.diagonal_number} diagonals at width {W} "
-                "needs the checkpointed streaming engine, which the port "
-                "does not have yet (the long-pair slice)")
+            with metrics.stage("fb_stream"):
+                for oi, pairs in enumerate(_run_streaming_task(
+                        hmm, t, band, p, mode, keys)):
+                    results[oi][t.job].append(pairs)
+            continue
         P = _bucket(band.diagonal_number)
         buckets.setdefault((P, W), []).append((t, band))
 

@@ -1,21 +1,37 @@
 // Banded pair-HMM wavefront kernels for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas kernels of cpecan_tpu/ops/fb_wavefront.py on the
-// batch path:
-//   wavefront_fwd <- _fwd_kernel (fb_wavefront.py:235), fresh, phase 0,
-//                    launched by _fb_wavefront_jit (fb_wavefront.py:1059)
-//   wavefront_bwd <- _bwd_kernel (fb_wavefront.py:404), batch, no carries,
-//                    launched by _fb_wavefront_jit (fb_wavefront.py:1256)
-//   wavefront_exp <- _exp_kernel (fb_wavefront.py:592), batch, no carries,
-//                    launched by _fb_wavefront_jit (fb_wavefront.py:1195)
+// Replaces the Pallas kernels of cpecan_tpu/ops/fb_wavefront.py at all
+// eight of their launch sites:
+//   wavefront_fwd <- _fwd_kernel (fb_wavefront.py:235): fresh, phase 0,
+//                    on the batch path (_fb_wavefront_jit,
+//                    fb_wavefront.py:1059); with carries for the exact
+//                    segmented engine's windows (fb_segmented.py:189) and
+//                    the burn-in-parallel engine's (fb_parallel.py:259)
+//   wavefront_bwd <- _bwd_kernel (fb_wavefront.py:404): batch
+//                    (fb_wavefront.py:1256); with carries, segmented
+//                    (fb_segmented.py:301) and parallel (fb_parallel.py:313)
+//   wavefront_exp <- _exp_kernel (fb_wavefront.py:592): batch
+//                    (fb_wavefront.py:1195); with the F halo and carries,
+//                    segmented (fb_segmented.py:422)
 // and computes what those bodies compute; the plain PyTorch versions
 // (cpecan_tpu_torch/ops/fb_wavefront.py fwd_reference / bwd_reference /
 // exp_reference) follow the same arithmetic and are the kernels' oracle.
 //
-// Layout (batch-major, all contiguous): streams (B, R, W) with R = P+1
+// Layout (batch-major, all contiguous): streams (B, R, W) with R
 // diagonals and W band slots; the forward intermediate F (B, R, S, W);
 // row-constant shift selects (B, R) int8; pm (B, R, W) int8; F0 and
-// end_row (B, S, W); mf / mb / total (B, R).
+// end_row (B, S, W); mf / mb / total (B, R). A window of a long pair is
+// a "pair" of R rows whose first row is global diagonal k0; the
+// row-max rescale applies on diagonals with (k0 + row) % 4 == 3 (k0 = 0
+// on the batch path). Its carries arrive through nullable pointers, one
+// region per block: forward (F_{k0-1}, F_{k0-2}) (B, S, W) each and 1/m
+// (B,); backward (B_{k1}, B_{k1+1}) (B, S, W) each, 1/mb (B,), em_{k1}
+// and bridgevec_{k1} (B, W) each; the carries out of the window's last
+// (forward) or first (backward) row leave through the same layout; exp's
+// F halo, rows k0-2 and k0-1, is (B, 2, S, W). Null carry-in pointers
+// give the batch path's start: F0 forward, zeros past the last diagonal
+// backward. Each kernel is instantiated twice (kWindow), so the batch
+// path runs code without any of the window arguments.
 //
 // Design: one thread block per pair, threads over the W band slots (each
 // thread owns up to kMaxSlotsPerThread slots, so W <= 4096). The diagonal
@@ -38,7 +54,10 @@
 // are the only device-memory traffic, and it relies on a batch of
 // hundreds of pairs (blocks) to hide the serial chain's latency across
 // the 132 SMs. Several pairs per block, asynchronous copies of the
-// streams and fewer barriers per diagonal are later work.
+// streams and fewer barriers per diagonal are later work. The exact
+// segmented engine launches one block for one window of one pair, so
+// there nothing hides that chain: its time is the chain's latency per
+// diagonal; the parallel engine batches windows as pairs again.
 //
 // wavefront_exp (EM's E-step) runs wavefront_bwd's recursion (one
 // templated body, backward_body, so mb and total come out the same) and,
@@ -221,12 +240,16 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-template <int S>
+// kWindow: a window of a long pair (carries in and out, phase k0); the
+// batch path's instantiation (kWindow false) compiles none of that.
+template <int S, bool kWindow>
 __global__ void __launch_bounds__(kMaxThreads) wavefront_fwd(
     const Trans tr, const float* __restrict__ ex, const float* __restrict__ ey,
     const float* __restrict__ em, const int8_t* __restrict__ a, const int8_t* __restrict__ b1,
-    const int8_t* __restrict__ b0, const float* __restrict__ F0, float* __restrict__ F,
-    float* __restrict__ bv, float* __restrict__ mf, int R, int W) {
+    const int8_t* __restrict__ b0, const float* __restrict__ F0, const float* __restrict__ ci1,
+    const float* __restrict__ ci2, const float* __restrict__ cim, float* __restrict__ F,
+    float* __restrict__ bv, float* __restrict__ mf, float* __restrict__ co1,
+    float* __restrict__ co2, float* __restrict__ com, int R, int W, int k0) {
   extern __shared__ float smem[];
   __shared__ float red[32];
   float* f1 = smem;          // F_{k-1} (S, W)
@@ -236,23 +259,32 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_fwd(
   const int nt = blockDim.x;
   const float* T = tr.v;
 
-  // Diagonal 0 is the start row F0; F_{-1} is zero.
-  for (int j = tid; j < W; j += nt) {
-    for (int s = 0; s < S; ++s) {
-      const float v = F0[((size_t)b * S + s) * W + j];
-      f1[s * W + j] = v;
-      f2[s * W + j] = 0.f;
-      F[(((size_t)b * R) * S + s) * W + j] = v;
-    }
-    bv[(size_t)b * R * W + j] = 0.f;
-  }
-  if (tid == 0) mf[(size_t)b * R] = 0.f;
   float invm = 1.f;  // 1/m_{k-1}
+  if constexpr (kWindow) {
+    // a window: every row is computed from the carried F_{k0-1}, F_{k0-2}
+    for (int j = tid; j < S * W; j += nt) {
+      f1[j] = ci1[(size_t)b * S * W + j];
+      f2[j] = ci2[(size_t)b * S * W + j];
+    }
+    invm = cim[b];
+  } else {
+    // Diagonal 0 is the start row F0; F_{-1} is zero.
+    for (int j = tid; j < W; j += nt) {
+      for (int s = 0; s < S; ++s) {
+        const float v = F0[((size_t)b * S + s) * W + j];
+        f1[s * W + j] = v;
+        f2[s * W + j] = 0.f;
+        F[(((size_t)b * R) * S + s) * W + j] = v;
+      }
+      bv[(size_t)b * R * W + j] = 0.f;
+    }
+    if (tid == 0) mf[(size_t)b * R] = 0.f;
+  }
   __syncthreads();
 
-  for (int i = 1; i < R; ++i) {
+  for (int i = kWindow ? 0 : 1; i < R; ++i) {
     const size_t row = (size_t)b * R + i;
-    const bool norm = i % kNormEvery == kNormEvery - 1;
+    const bool norm = ((kWindow ? k0 : 0) + i) % kNormEvery == kNormEvery - 1;
     // lower neighbour (consumes X) at j-1+a, upper (consumes Y) at j+a,
     // middle (consumes XY, F_{k-2}) at j+dmid with dmid in {-1, 0, 1}
     const bool sa = a[row] != 0;
@@ -320,6 +352,15 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_fwd(
     f2 = tmp;
     invm = r;
   }
+
+  // carry out of the last row (the loop's final barrier precedes)
+  if (kWindow && co1 != nullptr) {
+    for (int j = tid; j < S * W; j += nt) {
+      co1[(size_t)b * S * W + j] = f1[j];
+      co2[(size_t)b * S * W + j] = f2[j];
+    }
+    if (tid == 0) com[b] = invm;
+  }
 }
 
 __device__ __forceinline__ void Model<5>::trans(float* out, const float* tacc, float* red,
@@ -374,6 +415,21 @@ struct BwdArgs {
   // wavefront_exp at W > kExpSharedWidth: (B, S*16, blockDim.x) emission
   // columns; null otherwise (the columns live in shared memory)
   float* eacc;
+  // windows of a long pair (all null on the batch path): exp's F halo
+  // (rows k0-2, k0-1), the backward carry in (B_{k1}, B_{k1+1}, 1/mb,
+  // em_{k1}, bridgevec_{k1}) and the same carry out of the first row
+  const float* fhc;
+  const float* ci_b1;
+  const float* ci_b2;
+  const float* ci_invb;
+  const float* ci_em;
+  const float* ci_bv;
+  float* co_b1;
+  float* co_b2;
+  float* co_invb;
+  float* co_em;
+  float* co_bv;
+  int k0;  // global diagonal of row 0
 };
 
 // The backward wavefront of one pair (this block's), high to low, with
@@ -381,7 +437,7 @@ struct BwdArgs {
 // (kExp true: wavefront_exp) of each diagonal. Shared memory: B_{k+1},
 // B_{k+2} (S, W) each, bridgevec_{k+1} (W), and for kExp the emission
 // accumulators (S * 16, blockDim.x) unless kScratch puts them in p.eacc.
-template <int S, int kSlots, bool kExp, bool kScratch = false>
+template <int S, int kSlots, bool kExp, bool kScratch, bool kWindow>
 __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p, int R, int W,
                                               float* smem, float (*red)[32]) {
   float* b1s = smem;              // B_{k+1} (S, W)
@@ -396,12 +452,14 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
   const bool all = p.post_x != nullptr;
   constexpr int kNz = Model<S>::kNz;
 
-  // The recursion starts past the last diagonal from zero carries.
+  // The recursion starts from the carry of the row above a window, or
+  // past the last diagonal from zero carries.
+  constexpr bool carry = kWindow;
   for (int j = tid; j < S * W; j += nt) {
-    b1s[j] = 0.f;
-    b2s[j] = 0.f;
+    b1s[j] = carry ? p.ci_b1[(size_t)b * S * W + j] : 0.f;
+    b2s[j] = carry ? p.ci_b2[(size_t)b * S * W + j] : 0.f;
   }
-  for (int j = tid; j < W; j += nt) bvn[j] = 0.f;
+  for (int j = tid; j < W; j += nt) bvn[j] = carry ? p.ci_bv[(size_t)b * W + j] : 0.f;
   if constexpr (kExp) {
     for (int j = tid; j < S * 16 * nt; j += nt) eacc[j] = 0.f;
   }
@@ -410,13 +468,16 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
   for (int k = 0; k < (kExp ? kNz : 1); ++k) tacc[k] = 0.f;
   float emn[kSlots];  // em_{k+1} of the thread's own slots
 #pragma unroll
-  for (int q = 0; q < kSlots; ++q) emn[q] = 0.f;
-  float invb = 1.f;  // 1/mb_{k+1}
+  for (int q = 0; q < kSlots; ++q) {
+    const int j = tid + q * nt;
+    emn[q] = (carry && j < W) ? p.ci_em[(size_t)b * W + j] : 0.f;
+  }
+  float invb = carry ? p.ci_invb[b] : 1.f;  // 1/mb_{k+1}
   __syncthreads();
 
   for (int ii = R - 1; ii >= 0; --ii) {
     const size_t row = (size_t)b * R + ii;
-    const bool norm = ii % kNormEvery == kNormEvery - 1;
+    const bool norm = ((kWindow ? p.k0 : 0) + ii) % kNormEvery == kNormEvery - 1;
     const int pm0 = p.pm[row * W];  // row-constant bits live in every slot
     const bool at_end = (pm0 & kPmAtEnd) != 0;
     const bool bvalid = (pm0 & kPmBridge) != 0;
@@ -498,8 +559,9 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
     }
 
     // forward-side row constants of the expectations: F_{k-1} (lower
-    // neighbour at j-1+a, upper at j+a) and F_{k-2} (middle at j+dmid),
-    // zero below diagonals 1 and 2 (where adj1 / adj2 are zero too)
+    // neighbour at j-1+a, upper at j+a) and F_{k-2} (middle at j+dmid);
+    // below row 0 a window reads its halo, the batch path zero (adj1 /
+    // adj2 are zero there too)
     const float* F1 = nullptr;
     const float* F2 = nullptr;
     int dl = 0, du = 0, dmf = 0;
@@ -511,8 +573,12 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
       dmf = p.b1[row] != 0 ? 1 : (p.b0[row] != 0 ? 0 : -1);
       a1 = p.adj1[row];
       a2 = p.adj2[row];
+      const float* halo =
+          (kWindow && p.fhc) ? p.fhc + (size_t)b * 2 * S * W : nullptr;
       if (ii >= 1) F1 = p.F + (row - 1) * S * W;
+      else if (halo) F1 = halo + S * W;
       if (ii >= 2) F2 = p.F + (row - 2) * S * W;
+      else if (halo) F2 = halo + ii * S * W;
     }
 
 #pragma unroll
@@ -566,6 +632,21 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
     b2s = tmp;
   }
 
+  // carry out of row 0 (the loop's final barrier precedes)
+  if (kWindow && p.co_b1 != nullptr) {
+    for (int j = tid; j < S * W; j += nt) {
+      p.co_b1[(size_t)b * S * W + j] = b1s[j];
+      p.co_b2[(size_t)b * S * W + j] = b2s[j];
+    }
+    for (int j = tid; j < W; j += nt) p.co_bv[(size_t)b * W + j] = bvn[j];
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      if (j < W) p.co_em[(size_t)b * W + j] = emn[q];
+    }
+    if (tid == 0) p.co_invb[b] = invb;
+  }
+
   if constexpr (kExp) {
     // The pair's counts: transitions by block reductions, emissions by
     // one thread per (state, symbol pair) summing the threads' columns
@@ -586,21 +667,21 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
   }
 }
 
-template <int S>
+template <int S, bool kWindow>
 __global__ void __launch_bounds__(kMaxThreads)
     wavefront_bwd(const Trans tr, const BwdArgs p, int R, int W) {
   extern __shared__ float smem[];
   __shared__ float red[3][32];
-  backward_body<S, kMaxSlotsPerThread, false>(tr, p, R, W, smem, red);
+  backward_body<S, kMaxSlotsPerThread, false, false, kWindow>(tr, p, R, W, smem, red);
 }
 
-template <int S, int kThreads>
+template <int S, int kThreads, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
     wavefront_exp(const Trans tr, const BwdArgs p, int R, int W) {
   extern __shared__ float smem[];
   __shared__ float red[3][32];
-  backward_body<S, kExpSlotsPerThread, true, (kThreads > kExpMaxThreads)>(tr, p, R, W, smem,
-                                                                        red);
+  backward_body<S, kExpSlotsPerThread, true, (kThreads > kExpMaxThreads), kWindow>(tr, p, R, W,
+                                                                                 smem, red);
 }
 
 int threads_for(int W) {
@@ -616,24 +697,28 @@ Trans load_trans(int S, const float* t_host) {
 
 template <int S>
 int launch_fwd(const float* t_host, const float* ex, const float* ey, const float* em,
-               const int8_t* a, const int8_t* b1, const int8_t* b0, const float* F0, float* F,
-               float* bv, float* mf, int B, int R, int W, cudaStream_t stream) {
+               const int8_t* a, const int8_t* b1, const int8_t* b0, const float* F0,
+               const float* ci1, const float* ci2, const float* cim, float* F, float* bv,
+               float* mf, float* co1, float* co2, float* com, int B, int R, int W, int k0,
+               cudaStream_t stream) {
   const size_t smem = 2 * (size_t)S * W * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(wavefront_fwd<S>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = ci1 != nullptr ? wavefront_fwd<S, true> : wavefront_fwd<S, false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wavefront_fwd<S><<<B, threads_for(W), smem, stream>>>(load_trans(S, t_host), ex, ey, em, a,
-                                                        b1, b0, F0, F, bv, mf, R, W);
+  kernel<<<B, threads_for(W), smem, stream>>>(load_trans(S, t_host), ex, ey, em, a, b1, b0, F0,
+                                              ci1, ci2, cim, F, bv, mf, co1, co2, com, R, W, k0);
   return (int)cudaGetLastError();
 }
 
 template <int S>
 int launch_bwd(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaStream_t stream) {
   const size_t smem = (2 * (size_t)S + 1) * W * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(wavefront_bwd<S>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = p.ci_b1 != nullptr ? wavefront_bwd<S, true> : wavefront_bwd<S, false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wavefront_bwd<S><<<B, threads_for(W), smem, stream>>>(load_trans(S, t_host), p, R, W);
+  kernel<<<B, threads_for(W), smem, stream>>>(load_trans(S, t_host), p, R, W);
   return (int)cudaGetLastError();
 }
 
@@ -646,7 +731,11 @@ int launch_exp(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaS
   const int nt = wide ? kExpWideThreads : std::min((W + 31) / 32 * 32, kExpMaxThreads);
   const size_t smem =
       ((2 * (size_t)S + 1) * W + (wide ? 0 : (size_t)S * 16 * nt)) * sizeof(float);
-  auto kernel = wide ? wavefront_exp<S, kExpWideThreads> : wavefront_exp<S, kExpMaxThreads>;
+  const bool window = p.ci_b1 != nullptr;
+  auto kernel = wide ? (window ? wavefront_exp<S, kExpWideThreads, true>
+                               : wavefront_exp<S, kExpWideThreads, false>)
+                     : (window ? wavefront_exp<S, kExpMaxThreads, true>
+                               : wavefront_exp<S, kExpMaxThreads, false>);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -659,21 +748,42 @@ bool bad_shape(int S, int B, int R, int W) {
          W > kMaxSlotsPerThread * kMaxThreads;
 }
 
+// The window arguments shared by the backward entry points: the carry in
+// and out (each five pointers, all null or all given) and k0.
+bool set_window(BwdArgs& p, const float* const* ci, float* const* co, int k0) {
+  const bool in = ci[0] != nullptr, out = co[0] != nullptr;
+  for (int k = 1; k < 5; ++k)
+    if ((ci[k] != nullptr) != in || (co[k] != nullptr) != out) return false;
+  p.ci_b1 = ci[0], p.ci_b2 = ci[1], p.ci_invb = ci[2], p.ci_em = ci[3], p.ci_bv = ci[4];
+  p.co_b1 = co[0], p.co_b2 = co[1], p.co_invb = co[2], p.co_em = co[3], p.co_bv = co[4];
+  p.k0 = k0;
+  return k0 >= 0;
+}
+
 }  // namespace
 
 // C entry points (loaded with ctypes). Each returns the cudaError_t of
 // the launch (0 on success); the wrapper raises on anything else.
 extern "C" {
 
+// F0 null: a window, started from the carry ci1/ci2/cim (all given);
+// co1/co2/com: the carry out, all null or all given.
 int cpecan_wavefront_fwd(int S, const float* t_host, const float* ex, const float* ey,
                          const float* em, const int8_t* a, const int8_t* b1, const int8_t* b0,
-                         const float* F0, float* F, float* bv, float* mf, int B, int R, int W,
-                         void* stream) {
-  if (bad_shape(S, B, R, W)) return (int)cudaErrorInvalidValue;
+                         const float* F0, const float* ci1, const float* ci2, const float* cim,
+                         float* F, float* bv, float* mf, float* co1, float* co2, float* com,
+                         int B, int R, int W, int k0, void* stream) {
+  if (bad_shape(S, B, R, W) || k0 < 0 || (F0 == nullptr) == (ci1 == nullptr) ||
+      (ci1 != nullptr && (ci2 == nullptr || cim == nullptr)) ||
+      (co1 != nullptr && (co2 == nullptr || com == nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S == 5) return launch_fwd<5>(t_host, ex, ey, em, a, b1, b0, F0, F, bv, mf, B, R, W, st);
-  return launch_fwd<3>(t_host, ex, ey, em, a, b1, b0, F0, F, bv, mf, B, R, W, st);
+  if (S == 5)
+    return launch_fwd<5>(t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2,
+                         com, B, R, W, k0, st);
+  return launch_fwd<3>(t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2, com,
+                       B, R, W, k0, st);
 }
 
 int cpecan_wavefront_bwd(int S, const float* t_host, const float* efx, const float* efy,
@@ -681,10 +791,15 @@ int cpecan_wavefront_bwd(int S, const float* t_host, const float* efx, const flo
                          const int8_t* abw, const int8_t* c1, const int8_t* c0,
                          const int8_t* bm1, const int8_t* bm0, const int8_t* pm,
                          const float* end_row, float* post_m, float* post_x, float* post_y,
-                         float* mb, float* tot, int B, int R, int W, void* stream) {
-  if (bad_shape(S, B, R, W)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
+                         float* mb, float* tot, const float* ci_b1, const float* ci_b2,
+                         const float* ci_invb, const float* ci_em, const float* ci_bv,
+                         float* co_b1, float* co_b2, float* co_invb, float* co_em, float* co_bv,
+                         int B, int R, int W, int k0, void* stream) {
   BwdArgs p = {};
+  const float* ci[5] = {ci_b1, ci_b2, ci_invb, ci_em, ci_bv};
+  float* co[5] = {co_b1, co_b2, co_invb, co_em, co_bv};
+  if (bad_shape(S, B, R, W) || !set_window(p, ci, co, k0)) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
   p.efx = efx, p.efy = efy, p.efm = efm, p.em = em, p.F = F, p.bv = bv;
   p.abw = abw, p.c1 = c1, p.c0 = c0, p.bm1 = bm1, p.bm0 = bm0, p.pm = pm;
   p.end_row = end_row, p.mb = mb, p.tot = tot;
@@ -701,12 +816,19 @@ int cpecan_wavefront_exp(int S, const float* t_host, const float* efx, const flo
                          const int8_t* a, const int8_t* b1, const int8_t* b0,
                          const int8_t* pm, const float* end_row, const float* adj1,
                          const float* adj2, const int8_t* wx, const int8_t* wy, float* trans,
-                         float* emis, float* eacc, float* mb, float* tot, int B, int R, int W,
+                         float* emis, float* eacc, float* mb, float* tot, const float* fhc,
+                         const float* ci_b1, const float* ci_b2, const float* ci_invb,
+                         const float* ci_em, const float* ci_bv, float* co_b1, float* co_b2,
+                         float* co_invb, float* co_em, float* co_bv, int B, int R, int W, int k0,
                          void* stream) {
-  if (bad_shape(S, B, R, W) || W > kExpSlotsPerThread * kExpWideThreads)
+  BwdArgs p = {};
+  const float* ci[5] = {ci_b1, ci_b2, ci_invb, ci_em, ci_bv};
+  float* co[5] = {co_b1, co_b2, co_invb, co_em, co_bv};
+  if (bad_shape(S, B, R, W) || W > kExpSlotsPerThread * kExpWideThreads ||
+      !set_window(p, ci, co, k0) || (fhc != nullptr && ci_b1 == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  BwdArgs p = {};
+  p.fhc = fhc;
   p.efx = efx, p.efy = efy, p.efm = efm, p.em = em, p.F = F, p.bv = bv;
   p.abw = abw, p.c1 = c1, p.c0 = c0, p.bm1 = bm1, p.bm0 = bm0, p.pm = pm;
   p.end_row = end_row, p.mb = mb, p.tot = tot;

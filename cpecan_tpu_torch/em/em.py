@@ -22,6 +22,9 @@ cPecanEm.py), run as one process on one device:
                                              cigars with the current model
   --trials random restarts (:217-242)     -> sequential
 
+Tasks too long for the two-pass engine run one at a time through the
+exact streaming engine (ops/fb_streaming.py), as in cpecan_tpu.
+
 Several processes or devices (cpecan_tpu's mesh and multi-host
 reduction) are the data-parallel item of the port's roadmap (Queue 1
 item 10): a mesh request raises NotImplementedError.
@@ -42,11 +45,10 @@ from cpecan_tpu_torch.config import PairwiseAlignmentParameters
 from cpecan_tpu_torch.models.hmm import Hmm, StateMachineType
 from cpecan_tpu_torch.models.state_machine import (
     PairHMM, StateMachine, default_state_machine, state_machine_from_hmm)
-from cpecan_tpu_torch.align.batch import should_stream
 from cpecan_tpu_torch.align.pairwise import (
     _bucket, _iterate_chunks, _width_bucket)
 from cpecan_tpu_torch.io import cigar as cigar_io
-from cpecan_tpu_torch.ops import fb_batch
+from cpecan_tpu_torch.ops import fb_batch, fb_parallel, fb_streaming
 from cpecan_tpu_torch.ops.band import construct_band, pad_band
 from cpecan_tpu_torch.utils import metrics
 from cpecan_tpu_torch.utils.retry import run_with_retries
@@ -170,22 +172,23 @@ def tasks_from_cigars(cigars, sequences: dict,
     return tasks
 
 
-def bucket_tasks(tasks: list, p: PairwiseAlignmentParameters) -> dict:
-    """Tasks with their bands, grouped by padded shape: {(P, W): [(task,
-    band), ...]}. A task long enough for the streaming engine raises."""
+def bucket_tasks(tasks: list, p: PairwiseAlignmentParameters) -> tuple:
+    """Tasks with their bands, grouped by padded shape: ({(P, W): [(task,
+    band), ...]}, streamed), where streamed lists the (task, band, W) of
+    the tasks too long for the two-pass engine
+    (``fb_streaming.should_stream``)."""
     buckets: dict = {}
+    streamed = []
     for t in tasks:
         band = construct_band([(a[0], a[1]) for a in t.anchors],
                               len(t.sub_x), len(t.sub_y), p.diagonalExpansion)
         P = _bucket(band.diagonal_number)
         W = _width_bucket(band.frame_width())
-        if should_stream(band.diagonal_number, W):
-            raise NotImplementedError(
-                f"a chunk of {band.diagonal_number} diagonals at width {W} "
-                "needs the checkpointed streaming engine, which the port "
-                "does not have yet (the long-pair slice)")
-        buckets.setdefault((P, W), []).append((t, band))
-    return buckets
+        if fb_streaming.should_stream(band.diagonal_number, W):
+            streamed.append((t, band, W))
+        else:
+            buckets.setdefault((P, W), []).append((t, band))
+    return buckets, streamed
 
 
 def bucket_arrays(items: list, P: int) -> tuple:
@@ -223,12 +226,29 @@ def expectation_step(sm: StateMachine, tasks: list,
     """Accumulate expected counts for all tasks into hmm. Tasks are bucketed
     by padded shape (P, W) and each bucket, padded to a power of two with
     zero-length pairs, runs as one batch of expectation passes on
-    ``device``."""
+    ``device``; tasks too long for that run one at a time through the
+    exact streaming engine."""
     _no_mesh(mesh)
     device = torch.device(device)
     model = PairHMM.from_state_machine(sm).to(device)
     with metrics.stage("host_prep"):
-        buckets = bucket_tasks(tasks, p)
+        buckets, streamed = bucket_tasks(tasks, p)
+    for t, band, W in streamed:
+        with metrics.stage("fb_stream"):
+            out = fb_streaming.fb_pass_streaming(
+                model, encode(t.sub_x), encode(t.sub_y), band.offsets,
+                band.widths, len(t.sub_x), len(t.sub_y), t.ragged_left,
+                t.ragged_right, "expectation", W,
+                fb_streaming.window_rows(p), fb_parallel.burnin_rows(p))
+        hmm.transitions += out["trans"]
+        hmm.emissions += out["emis"]
+        L = band.diagonal_number
+        cf = np.cumsum(out["mf"][: L + 1])
+        cb = np.cumsum(out["mb"][: L + 1][::-1])[::-1]
+        hmm.likelihood += float(
+            np.sum(out["total_raw"][1 : L + 1] + cf[1:] + cb[1:]))
+        metrics.add("dp_cells", int(band.widths.sum()))
+        metrics.add("streamed_chunks", 1)
     for (P, W), items in buckets.items():
         B = len(items)
         metrics.add("dp_cells", sum(int(band.widths.sum()) for _, band in items))

@@ -30,10 +30,10 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "cpecan_wavefront_fwd": [_I] + [_P] * 11 + [_I] * 3 + [_P],
-    "cpecan_wavefront_bwd": [_I] + [_P] * 19 + [_I] * 3 + [_P],
-    "cpecan_wavefront_exp": [_I] + [_P] * 28 + [_I] * 3 + [_P],
+_SIGNATURES = {  # (S, pointers..., B, R, W, k0, stream)
+    "cpecan_wavefront_fwd": [_I] + [_P] * 17 + [_I] * 4 + [_P],
+    "cpecan_wavefront_bwd": [_I] + [_P] * 29 + [_I] * 4 + [_P],
+    "cpecan_wavefront_exp": [_I] + [_P] * 39 + [_I] * 4 + [_P],
 }
 
 

@@ -11,8 +11,10 @@ x = xoff[k] + j, where xoff is the cummax of the band's left x edge, so
 xoff advances by delta in {0, 1} per diagonal.
 
 The JAX package builds symbol windows three ways (one-hot matmul, slab,
-scan) because gathers are slow on a TPU; here one plain gather serves.
-The full scan engine (expectation mode) belongs to the EM slice.
+scan) because gathers are slow on a TPU; here one plain gather serves,
+for a batch of pairs (``precompute``) and for windows of one long pair
+(``precompute_window``). The scan engine is not ported: the kernels'
+plain versions are the port's CPU engine.
 """
 
 from __future__ import annotations
@@ -51,18 +53,22 @@ def _frame_from_band(offsets, widths):
     return xoff, delta, xlo - xoff, xhi - xoff
 
 
-def _symbol_windows(sx_pad, sy_pad, xoff, LY: int, W: int):
+def _symbol_windows(sx_pad, sy_pad, xoff, LY, W: int, ks=None,
+                    pad_off: int | None = None):
     """Per-diagonal symbol windows by gather.
 
-    sx_pad / sy_pad: (B, W+1 + n + W+1) symbols (sy reversed), padded with
-    W+1 sentinels on both sides. Returns (wx, wy), each (B, P+1, W+1):
-      wx[b, k, j] = sx_pad[b, xoff[k] - 1 + j + W+1]          (x-1 at j, x at j+1)
-      wy[b, k, j] = sy_pad[b, LY - k + xoff[k] - 1 + j + W+1] (y at j, y-1 at j+1)
+    sx_pad / sy_pad: (B, pad + n + pad) symbols (sy reversed), padded with
+    pad_off (default W+1) sentinels on both sides; B may be 1 for rows of
+    one pair. Returns (wx, wy), each xoff's shape plus a last axis of W+1:
+      wx[b, r, j] = sx_pad[b, xoff[r] - 1 + j + pad]           (x-1 at j, x at j+1)
+      wy[b, r, j] = sy_pad[b, LY - k_r + xoff[r] - 1 + j + pad] (y at j, y-1 at j+1)
+    where k_r is row r's diagonal: ks[b, r] when given, else r.
     """
-    B, P1 = xoff.shape
-    pad_off = W + 1
-    ks = torch.arange(P1, device=xoff.device)
-    bi = torch.arange(B, device=xoff.device)[:, None]
+    if pad_off is None:
+        pad_off = W + 1
+    if ks is None:
+        ks = torch.arange(xoff.shape[1], device=xoff.device)
+    bi = torch.arange(sx_pad.shape[0], device=xoff.device)[:, None]
 
     def gather(seq_pad, origin):
         win = seq_pad.unfold(1, W + 1, 1)  # (B, n, W+1) sliding view

@@ -26,6 +26,12 @@ Layout is batch-major: streams (B, R, W) with R = P+1 diagonals and W
 band slots; the forward intermediate F is (B, R, S, W); the row-constant
 shift selects are (B, R) int8. The TPU-only machinery (lane packing,
 tile picking, the VMEM envelope, group padding) has no counterpart.
+
+The streaming engines of long pairs (ops/fb_segmented.py,
+ops/fb_parallel.py) run windows of a pair as the batch's "pairs": each
+wrapper then takes the window's carries and its first row's global
+diagonal k0 (the rescale schedule), and exp the two F rows below the
+window; ``precompute_window`` builds the windows' streams.
 """
 
 from __future__ import annotations
@@ -70,9 +76,13 @@ EXP_WIDE_THREADS = 512
 # and add exact zeros.
 KERNEL_NZ = _kernels.kernel_structures()
 
-# Kernel launches since the last reset, per kernel. Incremented only
-# where a wrapper launches its kernel.
-LAUNCHES = {"fwd": 0, "bwd": 0, "exp": 0}
+# Kernel launches since the last reset, per TPU kernel site: the batch
+# path (fwd, bwd, exp), the exact segmented engine's windows (seg_*) and
+# the burn-in-parallel engine's window batches (par_*). The three CUDA
+# kernels serve all sites; each wrapper adds one to the count its caller
+# names where it launches its kernel, and nowhere else.
+LAUNCHES = {"fwd": 0, "bwd": 0, "exp": 0, "seg_fwd": 0, "seg_bwd": 0,
+            "seg_exp": 0, "par_fwd": 0, "par_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -147,58 +157,126 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
     sy_pad = torch.cat([pad, torch.flip(sy_s, dims=[1]), pad], dim=1)
     wx, wy = _fb._symbol_windows(sx_pad, sy_pad, xoff, LY, W)
 
-    e_x, e_y, e_m = _fb._emissions(prob, wx[..., :W], wy[..., 1:])
-    ef_x, ef_y, ef_m = _fb._emissions(prob, wx[..., 1:], wy[..., :W])
-
     js = torch.arange(W, device=dev)
     ks = torch.arange(P1, device=dev)
     slot_ok = (js >= jlo[..., None]) & (js <= jhi[..., None])
-    fm = slot_ok.to(torch.float32)
-    e_x, e_y, e_m = e_x * fm, e_y * fm, e_m * fm
-    ef_x, ef_y, ef_m = ef_x * fm, ef_y * fm, ef_m * fm
-
     d_km1 = torch.cat([delta[:, :1], delta[:, :-1]], dim=1)
     dmid = delta + d_km1 - 1
     delta_pad = torch.cat([delta, delta.new_zeros(B, 2)], dim=1)
     d1 = delta_pad[:, 1:P + 2]
     dsum2 = d1 + delta_pad[:, 2:P + 3]
     dmid1 = torch.cat([dmid[:, 1:], dmid.new_zeros(B, 1)], dim=1)
-
-    i8 = lambda cond: cond.to(torch.int8)
     xs = xoff[..., None] + js
-    ys = ks[:, None] - xs
-    valid_k = ((ks >= 1) & (ks <= L[:, None]))[..., None] & slot_ok
-    row_bits = (torch.where(ks == L[:, None], _PM_ATEND, 0)
-                | torch.where((ks >= 1) & (ks < L[:, None]), _PM_BRIDGE, 0))
+    out = _streams(prob, wx, wy, slot_ok, xs, ks[:, None] - xs,
+                   (ks >= 1) & (ks <= L[:, None]), ks == L[:, None],
+                   (ks >= 1) & (ks < L[:, None]), delta, dmid, d1, dsum2,
+                   dmid1)
+    out["F0"], out["m0log"] = start_rows(prob, ragged_left, S, W)
+    slot_ok_L = slot_ok[torch.arange(B, device=dev), L.clamp(0, P)]
+    out["end_row"] = end_rows(prob, ragged_right, slot_ok_L.float())
+    out.update(xoff=xoff, jlo=jlo, jhi=jhi, L=L)
+    return out
+
+
+def _streams(prob, wx, wy, slot_ok, xs, ys, valid_rows, at_end, bridge,
+             delta, dmid, d1, dsum2, dmid1) -> dict:
+    """The kernels' streams from per-row frame quantities: emissions
+    masked to the band's slots, the row shift selects, the pm bitfield
+    and the cells' symbol pairs. wx/wy (..., W+1) symbol windows; slot_ok,
+    xs, ys (..., W); the rest per row: valid_rows (posteriors let
+    through), at_end (k == L), bridge (1 <= k < L), the x-frame steps
+    delta, dmid = d_k + d_{k-1} - 1, d1 = d_{k+1}, dsum2 = d_{k+1} +
+    d_{k+2} and dmid1 (dmid of row k+1)."""
+    W = slot_ok.shape[-1]
+    fm = slot_ok.to(torch.float32)
+    e_x, e_y, e_m = _fb._emissions(prob, wx[..., :W], wy[..., 1:])
+    ef_x, ef_y, ef_m = _fb._emissions(prob, wx[..., 1:], wy[..., :W])
+    valid_k = valid_rows[..., None] & slot_ok
+    row_bits = (torch.where(at_end, _PM_ATEND, 0)
+                | torch.where(bridge, _PM_BRIDGE, 0))
     pm = (torch.where(valid_k & (xs > 0) & (ys > 0), _PM_MATCH, 0)
           | torch.where(valid_k & (xs > 0), _PM_GAPX, 0)
           | torch.where(valid_k & (ys > 0), _PM_GAPY, 0)
           | row_bits[..., None])
-
-    start_vec = torch.where(ragged_left.bool()[:, None],
-                            prob["ragged_start"], prob["start"])
-    F0 = torch.zeros(B, S, W, dtype=torch.float32, device=dev)
-    F0[:, :, 0] = start_vec
-    m0 = F0.amax(dim=(1, 2))
-    m0 = torch.where(m0 > 0, m0, torch.ones_like(m0))
-    F0 = F0 / m0[:, None, None]
-
-    end_vec = torch.where(ragged_right.bool()[:, None],
-                          prob["ragged_end"], prob["end"])
-    slot_ok_L = fm[torch.arange(B, device=dev), L.clamp(0, P)]
-    end_row = end_vec[:, :, None] * slot_ok_L[:, None, :]
-
+    i8 = lambda cond: cond.to(torch.int8)
     return {
-        "ex": e_x, "ey": e_y, "em": e_m,
-        "efx": ef_x, "efy": ef_y, "efm": ef_m,
+        "ex": e_x * fm, "ey": e_y * fm, "em": e_m * fm,
+        "efx": ef_x * fm, "efy": ef_y * fm, "efm": ef_m * fm,
         "a": i8(delta == 1), "b1": i8(dmid == 1), "b0": i8(dmid == 0),
         "abw": i8(d1 == 1), "c1": i8(dsum2 == 2), "c0": i8(dsum2 == 1),
         "bm1": i8(dmid1 == 1), "bm0": i8(dmid1 == 0),
         "pm": pm.to(torch.int8),
         "wx": wx[..., :W].contiguous(), "wy": wy[..., 1:].contiguous(),
-        "F0": F0, "m0log": torch.log(m0), "end_row": end_row,
-        "xoff": xoff, "jlo": jlo, "jhi": jhi, "L": L,
     }
+
+
+def start_rows(prob, ragged_left, S: int, W: int):
+    """Diagonal 0's start rows F0 (B, S, W), each scaled by its max, and
+    the logs of those maxima (B,)."""
+    start_vec = torch.where(ragged_left.bool()[:, None],
+                            prob["ragged_start"], prob["start"])
+    F0 = torch.zeros(ragged_left.shape[0], S, W, dtype=torch.float32,
+                     device=start_vec.device)
+    F0[:, :, 0] = start_vec
+    m0 = F0.amax(dim=(1, 2))
+    m0 = torch.where(m0 > 0, m0, torch.ones_like(m0))
+    return F0 / m0[:, None, None], torch.log(m0)
+
+
+def end_rows(prob, ragged_right, slot_ok_L):
+    """The end vectors masked to the band slots of diagonal L: (B, S, W)
+    from slot_ok_L (B, W) f32."""
+    end_vec = torch.where(ragged_right.bool()[:, None],
+                          prob["ragged_end"], prob["end"])
+    return end_vec[:, :, None] * slot_ok_L[:, None, :]
+
+
+def precompute_window(hmm, sx_pad, sy_pad, frame: dict, LY: int, L: int,
+                      starts, rows: int, width: int, pad_off: int,
+                      base=None, emit=None) -> dict:
+    """Stream prep for windows of ONE long pair, batched as pairs: window
+    i covers global diagonals [starts[i], starts[i] + rows) of the pair's
+    padded frame (counterpart of ``_prep_window`` in
+    cpecan_tpu/ops/fb_segmented.py and ``_prep_one`` in fb_parallel.py).
+
+    sx_pad, sy_pad: (1, pad_off + n + pad_off) int8 symbols of the pair
+    (sy reversed), padded with pad_off sentinels; frame: the pair's
+    x-frame ``xoff``/``delta``/``jlo``/``jhi``, 1-D int64 over all
+    diagonals plus padding rows with an empty band, at least two rows
+    past the last window. starts (n,) int64. base (n,): window i's slot j
+    is global slot j + base[i] (default 0). emit (n, 2): the rows
+    [lo, hi) whose posteriors the pm bits let through (default all of
+    the window's). The row bits of pm (at_end at k == L, bridge for
+    1 <= k < L) and the neighbour diagonals d_{k-1}, d_{k+1}, d_{k+2}
+    come from the global frame.
+
+    Returns ``precompute``'s stream keys (ex .. pm, wx, wy) at (n, rows,
+    width) and (n, rows); a window that starts at 0 and covers a pair's
+    P+1 diagonals gives precompute's rows (bm1/bm0 of the last row aside,
+    which read a diagonal past the window)."""
+    dev = sx_pad.device
+    W = int(width)
+    prob = _fb._prob_params(hmm)
+    ks = starts[:, None] + torch.arange(rows, device=dev)
+    last = frame["xoff"].shape[0] - 1
+    at = lambda key, off=0: frame[key][(ks + off).clamp(0, last)]
+    base = (torch.zeros_like(starts) if base is None else base)[:, None]
+    xoff = at("xoff") + base
+    delta, d_km1, d1, d2 = at("delta"), at("delta", -1), at("delta", 1), \
+        at("delta", 2)
+    jlo, jhi = at("jlo") - base, at("jhi") - base
+
+    wx, wy = _fb._symbol_windows(sx_pad, sy_pad, xoff, LY, W, ks=ks,
+                                 pad_off=pad_off)
+    js = torch.arange(W, device=dev)
+    slot_ok = (js >= jlo[..., None]) & (js <= jhi[..., None])
+    xs = xoff[..., None] + js
+    lo, hi = ((ks[:, :1], ks[:, -1:] + 1) if emit is None
+              else (emit[:, :1], emit[:, 1:]))
+    return _streams(prob, wx, wy, slot_ok, xs, ks[..., None] - xs,
+                    (ks >= lo) & (ks < hi) & (ks >= 1) & (ks <= L), ks == L,
+                    (ks >= 1) & (ks < L), delta, delta + d_km1 - 1, d1,
+                    d1 + d2, d1 + delta - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -206,31 +284,48 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
 # ---------------------------------------------------------------------------
 
 
-def fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz):
+def _is_norm_row(k: int) -> bool:
+    """Whether global diagonal k applies the row-max rescale."""
+    return k % NORM_EVERY == NORM_EVERY - 1
+
+
+def fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz, carry=None, k0=0):
     """Forward wavefront, vectorised over (B, S, W) with a loop over
-    diagonals; follows ``_fwd_kernel`` (fresh, phase 0) in arithmetic.
+    diagonals; follows ``_fwd_kernel`` in arithmetic.
 
     t: (3S, S) transition probabilities; ex/ey/em (B, R, W) f32;
-    a/b1/b0 (B, R) int8; F0 (B, S, W). Returns F (B, R, S, W),
-    bv (B, R, W) and mf (B, R)."""
+    a/b1/b0 (B, R) int8. Returns F (B, R, S, W), bv (B, R, W) and
+    mf (B, R).
+
+    Batch path (fresh): F0 (B, S, W) is diagonal 0's start row, row 0 of
+    the outputs, and the recursion starts at row 1. With ``carry`` =
+    (F_{k0-1}, F_{k0-2}, 1/m_{k0-1}), (B, S, W), (B, S, W), (B,), F0 is
+    unused, every row is a computed diagonal, and the return gains the
+    carry out of the last row (same layout) for the next window. k0 is
+    the first row's global diagonal, which sets the rescale schedule."""
     B, R, W = ex.shape
-    S = F0.shape[1]
+    zero = ex.new_zeros(B, W)
+    if carry is None:
+        S = F0.shape[1]
+        F1, F2 = list(F0.unbind(1)), [zero] * S
+        invm = ex.new_ones(B, 1)
+    else:
+        S = carry[0].shape[1]
+        F1, F2 = list(carry[0].unbind(1)), list(carry[1].unbind(1))
+        invm = carry[2][:, None]
     tv = t.detach().cpu().reshape(3 * S, S).tolist()
     F = ex.new_empty(B, R, S, W)
     bv = ex.new_zeros(B, R, W)
     mf = ex.new_zeros(B, R)
-    F[:, 0] = F0
-    zero = ex.new_zeros(B, W)
-    F1 = list(F0.unbind(1))
-    F2 = [zero] * S
-    invm = ex.new_ones(B, 1)
+    if carry is None:
+        F[:, 0] = F0
 
     xs_rows = sorted({f for cl, f, _ in nz if cl == 0})
     ys_rows = sorted({f for cl, f, _ in nz if cl == 2})
     mid_rows = sorted({f for cl, f, _ in nz if cl == 1})
     match_tm = [(f, to) for cl, f, to in nz if cl == 1 and to == 0]
 
-    for i in range(1, R):
+    for i in range(0 if carry is not None else 1, R):
         ai = (a[:, i] != 0)[:, None]
         b1i = (b1[:, i] != 0)[:, None]
         b0i = (b0[:, i] != 0)[:, None]
@@ -260,7 +355,7 @@ def fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz):
             bvr = bvr + F2[f] * tv[S + f][to]
         bv[:, i] = bvr * invm
 
-        if i % NORM_EVERY == NORM_EVERY - 1:
+        if _is_norm_row(k0 + i):
             m = torch.stack(cur, dim=1).amax(dim=(1, 2))[:, None]
             m = torch.where(m > 0, m, torch.ones_like(m))
             mf[:, i] = torch.log(m[:, 0])
@@ -272,25 +367,35 @@ def fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz):
             invm = torch.ones_like(invm)
         F[:, i] = torch.stack(F_new, dim=1)
         F1, F2 = F_new, F1
-    return F, bv, mf
+    if carry is None:
+        return F, bv, mf
+    return F, bv, mf, (torch.stack(F1, 1), torch.stack(F2, 1), invm[:, 0])
 
 
 def _bwd_sweep(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
-               end_row, nz, mb, tot):
-    """The backward recursion of ``_bwd_kernel`` / ``_exp_kernel`` (batch
-    path, phase 0), vectorised over (B, S, W), high to low. Writes mb and
-    total_raw into ``mb``/``tot`` (B, R) and yields, per diagonal ii,
-    (ii, F row (S tensors), B_k (S tensors), 1/total_k (B, 1), pm row)."""
+               end_row, nz, mb, tot, carry=None, k0=0, carry_out=None):
+    """The backward recursion of ``_bwd_kernel`` / ``_exp_kernel``,
+    vectorised over (B, S, W), high to low. Writes mb and total_raw into
+    ``mb``/``tot`` (B, R) and yields, per diagonal ii, (ii, F row (S
+    tensors), B_k (S tensors), 1/total_k (B, 1), pm row).
+
+    The recursion starts from ``carry`` = (B_{k1}, B_{k1+1}, 1/mb_{k1},
+    em_{k1}, bridgevec_{k1}) of the row just above the window, (B, S, W),
+    (B, S, W), (B,), (B, W), (B, W), or from zeros past the last
+    diagonal (batch path). k0 is row 0's global diagonal. When given the
+    list ``carry_out``, the carry of row 0 (same layout) is appended to
+    it once the sweep is done."""
     B, R, W = efx.shape
     S = F.shape[2]
     tv = t.detach().cpu().reshape(3 * S, S).tolist()
 
     zero = efx.new_zeros(B, W)
-    B1 = [zero] * S
-    B2 = [zero] * S
-    invb = efx.new_ones(B, 1)
-    em_next = zero
-    bvn = zero
+    if carry is None:
+        B1, B2 = [zero] * S, [zero] * S
+        invb, em_next, bvn = efx.new_ones(B, 1), zero, zero
+    else:
+        B1, B2 = list(carry[0].unbind(1)), list(carry[1].unbind(1))
+        invb, em_next, bvn = carry[2][:, None], carry[3], carry[4]
 
     x_targets = sorted({to for cl, _, to in nz if cl == 0})
     y_targets = sorted({to for cl, _, to in nz if cl == 2})
@@ -328,7 +433,7 @@ def _bwd_sweep(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
         for f in range(S):
             raw[f] = torch.where(at_end, end_row[:, f], raw[f])
 
-        if ii % NORM_EVERY == NORM_EVERY - 1:
+        if _is_norm_row(k0 + ii):
             m = torch.stack(raw, dim=1).amax(dim=(1, 2))[:, None]
             # m := m where (m > 0 and not at_end) else 1
             good = (m > 0).to(torch.float32) * (1.0 - ae_col)
@@ -362,35 +467,44 @@ def _bwd_sweep(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
         invb = r * (1.0 - ae_col) + ae_col
         em_next = em[:, ii]
         bvn = bv[:, ii]
+    if carry_out is not None:
+        carry_out.append((torch.stack(B1, 1), torch.stack(B2, 1),
+                          invb[:, 0], em_next, bvn))
 
 
 def bwd_reference(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
-                  end_row, nz, mode: str = "posterior_match"):
+                  end_row, nz, mode: str = "posterior_match", carry=None,
+                  k0=0):
     """Backward+posterior wavefront (high to low), vectorised over
-    (B, S, W); follows ``_bwd_kernel`` (batch path, phase 0).
+    (B, S, W); follows ``_bwd_kernel``.
 
     Returns (posts, mb, total_raw): posts is [post_match] or
     [post_match, post_gap_x, post_gap_y], each (B, R, W); mb and
-    total_raw are (B, R)."""
+    total_raw are (B, R). With ``carry`` (see ``_bwd_sweep``) the
+    recursion starts from it and the return gains row 0's carry out."""
     B, R, W = efx.shape
     n_out = 3 if mode == "posterior_all" else 1
     posts = [efx.new_empty(B, R, W) for _ in range(n_out)]
     mb = efx.new_empty(B, R)
     tot = efx.new_empty(B, R)
     gates = (_PM_MATCH, _PM_GAPX, _PM_GAPY)
+    out = []
     for ii, F_row, B_new, invt, pmi in _bwd_sweep(
             t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row,
-            nz, mb, tot):
+            nz, mb, tot, carry, k0, out):
         for s in range(n_out):
             posts[s][:, ii] = torch.where(
                 (pmi & gates[s]) != 0, F_row[s] * B_new[s] * invt, 0.0)
-    return posts, mb, tot
+    if carry is None:
+        return posts, mb, tot
+    return posts, mb, tot, out[0]
 
 
 def exp_reference(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1,
-                  bm0, a, b1, b0, pm, end_row, adj1, adj2, wx, wy, nz):
+                  bm0, a, b1, b0, pm, end_row, adj1, adj2, wx, wy, nz,
+                  halo=None, carry=None, k0=0):
     """Backward recursion plus expected counts, vectorised over (B, S, W);
-    follows ``_exp_kernel`` (batch path, phase 0).
+    follows ``_exp_kernel``.
 
     The recursion is ``bwd_reference``'s, so mb and total_raw are the
     same. Per cell the neighbour F rows of the forward intermediate
@@ -403,7 +517,12 @@ def exp_reference(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1,
 
     ex/ey/em (B, R, W) f32 are the forward emission streams; a/b1/b0 the
     forward shift selects; adj1/adj2 (B, R) f32; wx/wy (B, R, W) int8.
-    Returns (trans (B, S, S), emis (B, S, 4, 4), mb, total_raw)."""
+    Returns (trans (B, S, S), emis (B, S, 4, 4), mb, total_raw).
+
+    A window of a long pair passes ``halo`` (B, 2, S, W), the F rows
+    k0-2 and k0-1 below it (the neighbours of its first two rows; zero
+    rows without it), and ``carry`` as ``bwd_reference`` does; the
+    return then gains row 0's backward carry out."""
     B, R, W = efx.shape
     S = F.shape[2]
     tv = t.detach().cpu().reshape(3 * S, S).tolist()
@@ -416,19 +535,22 @@ def exp_reference(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1,
     xs_rows = sorted({f for cl, f, _ in nz if cl == 0})
     ys_rows = sorted({f for cl, f, _ in nz if cl == 2})
     mid_rows = sorted({f for cl, f, _ in nz if cl == 1})
+    # rows k0-2, k0-1: the halo, or zero (the batch path's adj is 0 there)
+    below = ([[zero] * S] * 2 if halo is None
+             else [halo[:, 0].unbind(1), halo[:, 1].unbind(1)])
 
+    out = []
     for ii, _, B_new, invt, _ in _bwd_sweep(
             t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row,
-            nz, mb, tot):
+            nz, mb, tot, carry, k0, out):
         ai = (a[:, ii] != 0)[:, None]
         b1i = (b1[:, ii] != 0)[:, None]
         b0i = (b0[:, ii] != 0)[:, None]
         exa = ex[:, ii] * adj1[:, ii, None]
         eya = ey[:, ii] * adj1[:, ii, None]
         ema = em[:, ii] * adj2[:, ii, None]
-        # neighbour rows below diagonal 0 / 1 are zero (their adj is 0)
-        Fm1 = F[:, ii - 1].unbind(1) if ii >= 1 else [zero] * S
-        Fm2 = F[:, ii - 2].unbind(1) if ii >= 2 else [zero] * S
+        Fm1 = F[:, ii - 1].unbind(1) if ii >= 1 else below[1]
+        Fm2 = F[:, ii - 2].unbind(1) if ii >= 2 else below[ii]
 
         nxe = {f: torch.where(ai, Fm1[f], _shift_r(Fm1[f])) * exa
                for f in xs_rows}
@@ -456,7 +578,9 @@ def exp_reference(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1,
     for idx, (cl, f, to) in enumerate(nz):
         trans[:, f, to] += tacc[idx].sum(dim=-1) * tv[cl * S + f][to]
     emis = eacc[:, :, :16].sum(dim=-1).reshape(B, S, 4, 4)
-    return trans, emis, mb, tot
+    if carry is None:
+        return trans, emis, mb, tot
+    return trans, emis, mb, tot, out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -513,49 +637,87 @@ def _host_transitions(t, S: int):
     return t.detach().to("cpu", torch.float32).reshape(3 * S, S).contiguous()
 
 
-def fwd(t, ex, ey, em, a, b1, b0, F0, nz):
+_NULL = ctypes.c_void_p(None)
+
+
+def _fwd_carry_specs(carry, B, S, W) -> dict:
+    f32 = torch.float32
+    return {"carry f1": (carry[0], f32, (B, S, W)),
+            "carry f2": (carry[1], f32, (B, S, W)),
+            "carry 1/m": (carry[2], f32, (B,))}
+
+
+def _bwd_carry_specs(carry, B, S, W) -> dict:
+    f32 = torch.float32
+    return {"carry b1": (carry[0], f32, (B, S, W)),
+            "carry b2": (carry[1], f32, (B, S, W)),
+            "carry 1/mb": (carry[2], f32, (B,)),
+            "carry em": (carry[3], f32, (B, W)),
+            "carry bv": (carry[4], f32, (B, W))}
+
+
+def _carry_ptrs(carry, n: int) -> list:
+    """The pointers of a carry tuple (in or out), or n null pointers."""
+    return [_NULL] * n if carry is None else [_ptr(x) for x in carry]
+
+
+def _empty_like_carry(carry):
+    return None if carry is None else tuple(torch.empty_like(x) for x in carry)
+
+
+def fwd(t, ex, ey, em, a, b1, b0, F0, nz, carry=None, k0=0, site="fwd"):
     """Forward wavefront: ``fwd_reference`` for CPU tensors, the CUDA
     kernel ``wavefront_fwd`` for CUDA tensors. Same contract as
-    ``fwd_reference``; ``t`` may live on the host (no device sync)."""
+    ``fwd_reference`` (a window of a long pair passes ``carry`` and its
+    first row's diagonal ``k0``); ``t`` may live on the host (no device
+    sync). ``site`` names the launch count the call adds to."""
     if ex.device.type == "cpu":
-        return fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz)
+        return fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz, carry, k0)
     B, R, W = ex.shape
-    S = F0.shape[1]
+    S = (F0 if carry is None else carry[0]).shape[1]
     f32, i8 = torch.float32, torch.int8
     row, rows = (B, R, W), (B, R)
-    _check_launch("fwd", S, W, nz, {
+    specs = {
         "ex": (ex, f32, row), "ey": (ey, f32, row), "em": (em, f32, row),
-        "a": (a, i8, rows), "b1": (b1, i8, rows), "b0": (b0, i8, rows),
-        "F0": (F0, f32, (B, S, W))})
+        "a": (a, i8, rows), "b1": (b1, i8, rows), "b0": (b0, i8, rows)}
+    specs.update({"F0": (F0, f32, (B, S, W))} if carry is None
+                 else _fwd_carry_specs(carry, B, S, W))
+    _check_launch("fwd", S, W, nz, specs)
     th = _host_transitions(t, S)
     F = torch.empty(B, R, S, W, dtype=f32, device=ex.device)
     bv = torch.empty(B, R, W, dtype=f32, device=ex.device)
     mf = torch.empty(B, R, dtype=f32, device=ex.device)
+    co = _empty_like_carry(carry)
     _launch("fwd", "cpecan_wavefront_fwd", ex.device, S, _ptr(th),
             _ptr(ex), _ptr(ey), _ptr(em), _ptr(a), _ptr(b1), _ptr(b0),
-            _ptr(F0), _ptr(F), _ptr(bv), _ptr(mf), B, R, W)
-    LAUNCHES["fwd"] += 1
-    return F, bv, mf
+            _ptr(F0) if carry is None else _NULL, *_carry_ptrs(carry, 3),
+            _ptr(F), _ptr(bv), _ptr(mf), *_carry_ptrs(co, 3), B, R, W, k0)
+    LAUNCHES[site] += 1
+    return (F, bv, mf) if carry is None else (F, bv, mf, co)
 
 
 def bwd(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row, nz,
-        mode: str = "posterior_match"):
+        mode: str = "posterior_match", carry=None, k0=0, site="bwd"):
     """Backward+posterior wavefront: ``bwd_reference`` for CPU tensors,
-    the CUDA kernel ``wavefront_bwd`` for CUDA tensors."""
+    the CUDA kernel ``wavefront_bwd`` for CUDA tensors. Same contract as
+    ``bwd_reference``."""
     if efx.device.type == "cpu":
         return bwd_reference(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1,
-                             bm0, pm, end_row, nz, mode)
+                             bm0, pm, end_row, nz, mode, carry, k0)
     B, R, W = efx.shape
     S = F.shape[2]
     f32, i8 = torch.float32, torch.int8
     row, rows = (B, R, W), (B, R)
-    _check_launch("bwd", S, W, nz, {
+    specs = {
         "efx": (efx, f32, row), "efy": (efy, f32, row),
         "efm": (efm, f32, row), "em": (em, f32, row),
         "F": (F, f32, (B, R, S, W)), "bv": (bv, f32, row),
         "abw": (abw, i8, rows), "c1": (c1, i8, rows), "c0": (c0, i8, rows),
         "bm1": (bm1, i8, rows), "bm0": (bm0, i8, rows), "pm": (pm, i8, row),
-        "end_row": (end_row, f32, (B, S, W))})
+        "end_row": (end_row, f32, (B, S, W))}
+    if carry is not None:
+        specs.update(_bwd_carry_specs(carry, B, S, W))
+    _check_launch("bwd", S, W, nz, specs)
     th = _host_transitions(t, S)
     n_out = 3 if mode == "posterior_all" else 1
     posts = [torch.empty(B, R, W, dtype=f32, device=efx.device)
@@ -563,30 +725,32 @@ def bwd(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row, nz,
     mb = torch.empty(B, R, dtype=f32, device=efx.device)
     tot = torch.empty(B, R, dtype=f32, device=efx.device)
     px, py = ((_ptr(posts[1]), _ptr(posts[2])) if n_out == 3
-              else (ctypes.c_void_p(None), ctypes.c_void_p(None)))
+              else (_NULL, _NULL))
+    co = _empty_like_carry(carry)
     _launch("bwd", "cpecan_wavefront_bwd", efx.device, S, _ptr(th),
             _ptr(efx), _ptr(efy), _ptr(efm), _ptr(em), _ptr(F), _ptr(bv),
             _ptr(abw), _ptr(c1), _ptr(c0), _ptr(bm1), _ptr(bm0), _ptr(pm),
             _ptr(end_row), _ptr(posts[0]), px, py, _ptr(mb), _ptr(tot),
-            B, R, W)
-    LAUNCHES["bwd"] += 1
-    return posts, mb, tot
+            *_carry_ptrs(carry, 5), *_carry_ptrs(co, 5), B, R, W, k0)
+    LAUNCHES[site] += 1
+    return (posts, mb, tot) if carry is None else (posts, mb, tot, co)
 
 
 def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
-        b0, pm, end_row, adj1, adj2, wx, wy, nz):
+        b0, pm, end_row, adj1, adj2, wx, wy, nz, halo=None, carry=None, k0=0,
+        site="exp"):
     """Backward recursion plus expected counts: ``exp_reference`` for CPU
     tensors, the CUDA kernel ``wavefront_exp`` for CUDA tensors. Same
     contract as ``exp_reference`` (per-pair trans and emis)."""
     if efx.device.type == "cpu":
         return exp_reference(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0,
                              bm1, bm0, a, b1, b0, pm, end_row, adj1, adj2,
-                             wx, wy, nz)
+                             wx, wy, nz, halo, carry, k0)
     B, R, W = efx.shape
     S = F.shape[2]
     f32, i8 = torch.float32, torch.int8
     row, rows = (B, R, W), (B, R)
-    _check_launch("exp", S, W, nz, {
+    specs = {
         "efx": (efx, f32, row), "efy": (efy, f32, row),
         "efm": (efm, f32, row), "em": (em, f32, row), "ex": (ex, f32, row),
         "ey": (ey, f32, row), "F": (F, f32, (B, R, S, W)),
@@ -595,7 +759,12 @@ def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
         "a": (a, i8, rows), "b1": (b1, i8, rows), "b0": (b0, i8, rows),
         "pm": (pm, i8, row), "end_row": (end_row, f32, (B, S, W)),
         "adj1": (adj1, f32, rows), "adj2": (adj2, f32, rows),
-        "wx": (wx, i8, row), "wy": (wy, i8, row)})
+        "wx": (wx, i8, row), "wy": (wy, i8, row)}
+    if halo is not None:
+        specs["halo"] = (halo, f32, (B, 2, S, W))
+    if carry is not None:
+        specs.update(_bwd_carry_specs(carry, B, S, W))
+    _check_launch("exp", S, W, nz, specs)
     th = _host_transitions(t, S)
     dev = efx.device
     trans = torch.empty(B, S, S, dtype=f32, device=dev)
@@ -604,15 +773,18 @@ def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
             if W > EXP_SHARED_WIDTH else None)
     mb = torch.empty(B, R, dtype=f32, device=dev)
     tot = torch.empty(B, R, dtype=f32, device=dev)
+    co = _empty_like_carry(carry)
     _launch("exp", "cpecan_wavefront_exp", dev, S, _ptr(th), _ptr(efx),
             _ptr(efy), _ptr(efm), _ptr(em), _ptr(ex), _ptr(ey), _ptr(F),
             _ptr(bv), _ptr(abw), _ptr(c1), _ptr(c0), _ptr(bm1), _ptr(bm0),
             _ptr(a), _ptr(b1), _ptr(b0), _ptr(pm), _ptr(end_row), _ptr(adj1),
             _ptr(adj2), _ptr(wx), _ptr(wy), _ptr(trans), _ptr(emis),
-            _ptr(eacc) if eacc is not None else ctypes.c_void_p(None),
-            _ptr(mb), _ptr(tot), B, R, W)
-    LAUNCHES["exp"] += 1
-    return trans, emis, mb, tot
+            _ptr(eacc) if eacc is not None else _NULL,
+            _ptr(mb), _ptr(tot), _ptr(halo) if halo is not None else _NULL,
+            *_carry_ptrs(carry, 5), *_carry_ptrs(co, 5), B, R, W, k0)
+    LAUNCHES[site] += 1
+    return ((trans, emis, mb, tot) if carry is None
+            else (trans, emis, mb, tot, co))
 
 
 # ---------------------------------------------------------------------------

@@ -132,10 +132,18 @@ def test_width_buckets_do_not_change_pairs(monkeypatch):
 
 
 def test_streaming_chunks_are_not_ported_yet(monkeypatch):
-    monkeypatch.setattr(port_batch, "_STREAM_BUDGET", 1)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        port_batch.batch_posteriors(state_machine5(), _jobs(1), _params(),
-                                    device="cpu")
+    """Chunks past the streaming budget used to raise; they now run the
+    streaming engine (the exact one on the CPU) and give the two-pass
+    pairs."""
+    from cpecan_tpu_torch.ops import fb_streaming
+
+    jobs, p, sm = _jobs(1), _params(), state_machine5()
+    ref = port_batch.batch_posteriors(sm, jobs, p, device="cpu")
+    monkeypatch.setattr(fb_streaming, "_STREAM_BUDGET", 1)
+    got = port_batch.batch_posteriors(sm, jobs, p, device="cpu")
+    assert fb_streaming.LAST_ENGINE == "exact"
+    for a, b in zip(got, ref):
+        _assert_pairs_agree(a, b, p.threshold)
 
 
 @pytest.fixture

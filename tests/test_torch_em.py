@@ -85,8 +85,10 @@ def test_wide_unanchored_gap_buckets_within_the_kernels():
     x = get_random_sequence(2600, rng).upper()
     y = evolve_sequence(x, rng).upper()
     p = port_em.EmOptions().pairwise_params()
-    (P, W), items = port_em.bucket_tasks(
-        [port_em._Task(x, y, [], True, True)], p).popitem()
+    buckets, streamed = port_em.bucket_tasks(
+        [port_em._Task(x, y, [], True, True)], p)
+    assert not streamed
+    (P, W), items = buckets.popitem()
     assert fb_wavefront.EXP_SHARED_WIDTH < W <= fb_wavefront.MAX_KERNEL_WIDTH
     assert len(items) == 1 and P >= len(x) + len(y)
     for n in range(2048, 4096, 64):
