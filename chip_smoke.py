@@ -12,7 +12,11 @@ Phases (any failure raises, so the exit code is non-zero):
      plain PyTorch versions on the same card tensors, check the
      tolerances, and time both per call; on the headline and the 3-state
      batch the same for the expectation kernel, and on a full band of
-     2.5 kb pairs for its wide variant (W > 2048);
+     2.5 kb pairs for its wide variant (W > 2048); then the backward
+     kernel across band widths 32-4096 (B=64, R=1025): against its plain
+     version, its launch plan (ring depth, shared memory), time, us per
+     diagonal, share of the bound and ptxas registers/spills, with its
+     direct-load variant beside the ring where it has one;
   4. realign main path: cpecan_tpu_torch.cli.realign.main on 1024
      generated 1 kb record pairs (default decode) and 256 of them with
      --mea, with every kernel's launch count reset before and read after;
@@ -122,7 +126,21 @@ def phase_device():
     return name, smi
 
 
+def _instantiation(kernel, args):
+    """A kernel instantiation's name from its mangled template arguments:
+    fwd<S,batch|window>, exp<S,threads,batch|window>,
+    bwd<S,slots,ring|direct,batch|window>."""
+    vals = [v for _, v in re.findall(r"L([ib])(\d+)E", args)]
+    vals[-1] = "window" if vals[-1] == "1" else "batch"
+    if kernel == "wavefront_bwd":
+        vals[2] = "ring" if vals[2] == "1" else "direct"
+    return f"{kernel}<{','.join(vals)}>"
+
+
 def phase_build():
+    """Build and load the kernels; print ptxas' registers and spills per
+    instantiation. Returns {instantiation: "registers, spills"} (empty
+    when the library was already built)."""
     from cpecan_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -131,15 +149,23 @@ def phase_build():
     log(f"build: {path.name} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s"
         + ("" if diagnostics else " (already built)"))
+    ptxas, name = {}, None
     for line in diagnostics.splitlines():
-        m = re.search(r"entry function .*(wavefront_\w{3})ILi(\d)E(?:Li(\d+)E)?"
-                      r"Lb([01])E", line)
+        m = re.search(r"entry function .*(wavefront_\w{3})I((?:L[ib]\d+E)+)E", line)
         if m:
-            args = [g for g in m.groups()[1:3] if g]
-            args.append("window" if m[4] == "1" else "batch")
-            log(f"  ptxas: {m[1]}<{','.join(args)}>")
+            name = _instantiation(m[1], m[2])
+            log(f"  ptxas: {name}")
         elif "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
+            r = re.search(r"Used (\d+) registers", line)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if name and (r or sp):
+                ptxas.setdefault(name, {}).update(
+                    {"registers": r[1]} if r else {"spills": sp.groups()})
+    return {k: f"{v.get('registers', '?')} registers, "
+               f"{v.get('spills', ('?', '?'))[0]} B spill stores, "
+               f"{v.get('spills', ('?', '?'))[1]} B spill loads"
+            for k, v in ptxas.items()}
 
 
 # ------------------------------------------------------------ batches
@@ -172,8 +198,9 @@ def _evolve(x, rng):
 
 def _band_batch(rng, B, P, mode, sm_factory, anchor_every=None,
                 expansion=20, full=False, evolve=False, ragged=False,
-                seq_len=SEQ_LEN):
-    """One launch's inputs, shaped as batch_posteriors builds them."""
+                seq_len=SEQ_LEN, width=None):
+    """One launch's inputs, shaped as batch_posteriors builds them (at
+    band width ``width`` when given: the bands padded out to it)."""
     from cpecan_tpu_torch.align import batch as port_batch
     from cpecan_tpu_torch.align.pairwise import _width_bucket
 
@@ -191,6 +218,10 @@ def _band_batch(rng, B, P, mode, sm_factory, anchor_every=None,
         seqs.append((x, y))
         bands.append(band)
     W = _width_bucket(max(b.frame_width() for b in bands))
+    if width is not None:
+        if width < W:
+            raise ValueError(f"bands need W={W}, above width={width}")
+        W = width
     sx = np.zeros((B, P), np.int32)
     sy = np.zeros((B, P), np.int32)
     offs = np.zeros((B, P + 1), np.int32)
@@ -388,6 +419,9 @@ def phase_kernels(card):
 
         pre = wf.precompute(hmm, *args, width=W)
         t = hmm.t_prob_host
+        # the plain versions take seconds a call; the headline's times go
+        # into the summary, the other batches' are one call each
+        plain_reps = 3 if name.startswith("a_") else 1
         fin = (t, pre["ex"], pre["ey"], pre["em"], pre["a"], pre["b1"],
                pre["b0"], pre["F0"], hmm.nz)
         F, bv, _ = wf.fwd(*fin)
@@ -396,8 +430,9 @@ def phase_kernels(card):
                 pre["pm"], pre["end_row"], hmm.nz, mode)
         ms = {"fwd": _median_ms(lambda: wf.fwd(*fin), 10),
               "bwd": _median_ms(lambda: wf.bwd(*bin_), 10),
-              "fwd_plain": _median_ms(lambda: wf.fwd_reference(*fin), 3),
-              "bwd_plain": _median_ms(lambda: wf.bwd_reference(*bin_), 3)}
+              "fwd_plain": _median_ms(lambda: wf.fwd_reference(*fin), plain_reps),
+              "bwd_plain": _median_ms(lambda: wf.bwd_reference(*bin_), plain_reps)}
+        direct = _bwd_direct(bin_, {}, hmm.state_number, W, 10, wf.bwd(*bin_))
         kern_s = (ms["fwd"] + ms["bwd"]) / 1e3
         plain_s = (ms["fwd_plain"] + ms["bwd_plain"]) / 1e3
         log(f"kernels {name}: B={B} P={P1 - 1} W={W} {mode}, "
@@ -408,6 +443,10 @@ def phase_kernels(card):
             f"fwd+bwd {bt['cells'] / kern_s:.4g} cells/s "
             f"(plain {bt['cells'] / plain_s:.4g} cells/s); kernel launches "
             f"so far in this phase {wf.LAUNCHES}")
+        if direct is not None:
+            log(f"  {card}: bwd ring {ms['bwd']:.3f} ms, its direct-load "
+                f"variant {direct:.3f} ms ({1e3 * ms['bwd'] / P1:.3f} and "
+                f"{1e3 * direct / P1:.3f} us per diagonal)")
         if name.startswith("a_"):
             for k in ("fwd", "bwd"):
                 summary[k]["ms"] = ms[k]
@@ -417,7 +456,8 @@ def phase_kernels(card):
         del got, want, pre, F, bv
         torch.cuda.empty_cache()
         if name.startswith(("a_", "c_")):
-            ems, err, shape = _check_exp(wf, hmm, args, W, name, card)
+            ems, err, shape = _check_exp(wf, hmm, args, W, name, card,
+                                         reps=(10, plain_reps))
             summary["exp"]["err"] = max(summary["exp"]["err"], err)
             if name.startswith("a_"):
                 summary["exp"]["ms"] = ems["exp"]
@@ -441,6 +481,82 @@ def phase_kernels(card):
         log(f"bound {k} at the headline batch: {bms:.3f} ms ({by}); kernel "
             f"{v['ms']:.3f} ms, {100 * bms / v['ms']:.1f}% of the bound")
     return summary
+
+
+# bwd's width sweep: B pairs of SWEEP_P bases (R = SWEEP_P + 1 diagonals)
+SWEEP_B, SWEEP_P = 64, 1024
+SWEEP_WIDTHS = (32, 128, 544, 1024, 1664, 2048, 4096)
+
+
+def _on_grid(args):
+    """Whether the streams wavefront_bwd's ring copies (efx, efy, efm,
+    em, F, bv, pm in the wrapper's argument order) start on 16-byte
+    boundaries, as the ring needs."""
+    return all(args[i].data_ptr() % 16 == 0 for i in (1, 2, 3, 4, 5, 6, 12))
+
+
+def _off_grid(x):
+    """A contiguous copy of int8 ``x`` that starts one byte past a 16-byte
+    boundary: wavefront_bwd then runs its direct-load variant."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    out = buf[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def phase_bwd_sweep(card, ptxas):
+    """wavefront_bwd across band widths on one batch shape (B=SWEEP_B
+    identical 512 bp pairs, anchors every 50 bp, the bands padded out to
+    W; dense anchors at W=32), 5-state, posterior_match: the kernel
+    against bwd_reference on the same card tensors, and per width its
+    launch plan (threads, slots, ring depth, shared memory), its time and
+    us per diagonal, its share of the bound and the ptxas line of the
+    instantiation that ran. Where the plan has a ring, the direct-load
+    variant (pm off the 16-byte grid) is checked and timed beside it."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    t0 = time.perf_counter()
+    hmm = PairHMM.from_state_machine(state_machine5()).cuda()
+    S, t = hmm.state_number, hmm.t_prob_host
+    rng = np.random.default_rng(11)
+    for W in SWEEP_WIDTHS:
+        bt = _band_batch(rng, SWEEP_B, SWEEP_P, "posterior_match",
+                         state_machine5, anchor_every=1 if W == 32 else 50,
+                         seq_len=SWEEP_P // 2, width=W)
+        pre = wf.precompute(hmm, *bt["args"], width=W)
+        F, bv, _ = wf.fwd(t, pre["ex"], pre["ey"], pre["em"], pre["a"],
+                          pre["b1"], pre["b0"], pre["F0"], hmm.nz)
+        bin_ = [t, pre["efx"], pre["efy"], pre["efm"], pre["em"], F, bv,
+                pre["abw"], pre["c1"], pre["c0"], pre["bm1"], pre["bm0"],
+                pre["pm"], pre["end_row"], hmm.nz, "posterior_match"]
+        want = wf.bwd_reference(*bin_)
+        L = bt["args"][4].long() + bt["args"][5].long()
+        ring = wf.bwd_plan(S, W)["depth"] > 0 and _on_grid(bin_)
+        variants = [("ring" if ring else "direct", bin_)]
+        if ring:
+            variants.append(("direct", bin_[:12] + [_off_grid(pre["pm"])]
+                             + bin_[13:]))
+        B, R, _ = pre["efx"].shape
+        bms, by = _bound(B, R, W, S, hmm.nz, "bwd")
+        log(f"bwd sweep W={W}: B={B} R={R}; bound {bms:.4f} ms ({by})")
+        for name, args in variants:
+            plan = wf.bwd_plan(S, W, aligned=name == "ring")
+            posts, mb, tot = wf.bwd(*args)
+            errs = _max_err({"post_match": posts[0], "mb": mb, "total_raw": tot},
+                            {"post_match": want[0][0], "mb": want[1],
+                             "total_raw": want[2]}, L)
+            ms = _median_ms(lambda: wf.bwd(*args), 5)
+            inst = f"wavefront_bwd<{S},{plan['slots']},{name},batch>"
+            log(f"  {name}: {plan['threads']} threads x {plan['slots']} slots, "
+                f"ring depth {plan['depth']}, shared memory {plan['smem']} B "
+                f"per block; {ms:.3f} ms ({1e3 * ms / R:.3f} us per diagonal, "
+                f"{100 * bms / ms:.1f}% of the bound), max abs err "
+                f"{max(errs.values()):.3g} ({card}); ptxas {inst}: "
+                f"{ptxas.get(inst, 'not reported (library already built)')}")
+        del bt, pre, F, bv, bin_, want, variants
+        torch.cuda.empty_cache()
+    log(f"bwd sweep: {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------ main path
@@ -669,7 +785,7 @@ def phase_em_kernel(seqs, cigars, card, summary):
     args = [torch.from_numpy(a).cuda() for a in em_mod.bucket_arrays(items, P)]
     hmm = PairHMM.from_state_machine(state_machine5()).cuda()
     _, err, _ = _check_exp(wf, hmm, args, W, f"em_batch_{len(items)}_tasks",
-                           card)
+                           card, reps=(10, 1))
     summary["exp"]["err"] = max(summary["exp"]["err"], err)
     torch.cuda.empty_cache()
 
@@ -912,7 +1028,30 @@ def _check_site(site, entry, S, nz, what, card, reps=5):
     log(f"  {site} at {what}: B={B} R={R} W={W}; kernel {ms:.3f} ms "
         f"({1e3 * ms / R:.2f} us per diagonal), plain {plain_ms:.1f} ms, "
         f"bound {bound[0]:.4f} ms ({bound[1]}), max abs err {err:.3g} ({card})")
+    if kind == "bwd":
+        direct = _bwd_direct(args, kw, S, W, reps, kern(*args, site=site, **kw))
+        if direct is not None:
+            log(f"    its direct-load variant: {direct:.3f} ms "
+                f"({1e3 * direct / R:.2f} us per diagonal)")
     return err, ms, plain_ms, bound
+
+
+def _bwd_direct(args, kw, S, W, reps, ring_out):
+    """Where wavefront_bwd's plan at (S, W) has a ring: the same launch
+    with pm off the 16-byte grid, which runs the direct-load variant; its
+    outputs within TOLERANCES of ``ring_out`` (the ring variant's) and
+    its CUDA-event median in ms. None where the plan has no ring."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    if not wf.bwd_plan(S, W)["depth"] or not _on_grid(args):
+        return None
+    moved = list(args)
+    moved[12] = _off_grid(args[12])
+    for (name, g), (_, r) in zip(_flat(wf.bwd(*moved, **kw)), _flat(ring_out)):
+        rtol, atol = TOLERANCES.get(_OUT_KEYS["bwd"].get(name), (1e-4, 1e-6))
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol,
+                                   msg=f"bwd direct-load variant {name}")
+    return _median_ms(lambda: wf.bwd(*moved, **kw), reps)
 
 
 def _dense(entries, rows, W):
@@ -1450,8 +1589,9 @@ def _no_jax_package():
 
 def main() -> int:
     card, smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     summary = phase_kernels(card)
+    phase_bwd_sweep(card, ptxas)
 
     seqs, cigars = _records(RECORDS)
     with tempfile.TemporaryDirectory() as tmp:

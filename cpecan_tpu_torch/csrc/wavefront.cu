@@ -34,34 +34,61 @@
 // path runs code without any of the window arguments.
 //
 // Design: one thread block per pair, threads over the W band slots (each
-// thread owns up to kMaxSlotsPerThread slots, so W <= 4096). The diagonal
-// loop runs inside the block; the carries that persist across grid steps
-// in VMEM on the TPU live here in shared memory (F_{k-1}, F_{k-2}; B_{k+1},
-// B_{k+2}, bridgevec_{k+1}) and registers (1/m, 1/mb, em_{k+1}). The
-// neighbour shifts in {-1, 0, +1} are shared-memory reads of slot j +- 1
-// with zero fill outside [0, W), like the Pallas _shift_l/_shift_r. The
-// row max (every 4th diagonal) and the per-diagonal dots are block
-// reductions (warp shuffles, then one value per warp through shared
-// memory). The transition contraction is unrolled at compile time over
-// the statically nonzero transitions of the 5-state (13) or 3-state (9)
-// structure; transition values arrive as a kernel argument.
+// thread owns up to 4 slots, so W <= 4096). The diagonal loop runs inside
+// the block; the carries that persist across grid steps in VMEM on the
+// TPU live here in shared memory (F_{k-1}, F_{k-2}; B_{k+1}, B_{k+2},
+// bridgevec_{k+1}) and registers (1/m, 1/mb, em_{k+1}). The neighbour
+// shifts in {-1, 0, +1} are shared-memory reads of slot j +- 1 with zero
+// fill outside [0, W), like the Pallas _shift_l/_shift_r. The row max
+// (every 4th diagonal) and the per-diagonal dots are block reductions
+// (warp shuffles, then one value per warp through shared memory). The
+// transition contraction is unrolled at compile time over the statically
+// nonzero transitions of the 5-state (13) or 3-state (9) structure;
+// transition values arrive as a kernel argument.
 //
 // What bounds it on the card: per cell the forward writes S floats of F
 // and the backward reads them back (S * W * 4 bytes per diagonal each
 // way), on top of ~7 emission/mask streams; and each block walks a
-// serial chain of R diagonals with two to five barriers per diagonal.
-// This simple design keeps every carry on chip, so F and the streams
-// are the only device-memory traffic, and it relies on a batch of
-// hundreds of pairs (blocks) to hide the serial chain's latency across
-// the 132 SMs. Several pairs per block, asynchronous copies of the
-// streams and fewer barriers per diagonal are later work. The exact
-// segmented engine launches one block for one window of one pair, so
-// there nothing hides that chain: its time is the chain's latency per
-// diagonal; the parallel engine batches windows as pairs again.
+// serial chain of R diagonals, whose latency per diagonal (device-memory
+// rounds, barriers) is the time wherever too few blocks share an SM to
+// hide it: the exact segmented engine runs one block per window, the
+// parallel engine a few windows per launch, and the batch path ~2 blocks
+// per SM. Every carry stays on chip, so F and the streams are the only
+// device-memory traffic.
 //
-// wavefront_exp (EM's E-step) runs wavefront_bwd's recursion (one
-// templated body, backward_body, so mb and total come out the same) and,
-// per cell, adds the posterior flow into Baum-Welch expected counts. Its
+// wavefront_bwd is built for that chain. Per diagonal it has at most one
+// device-memory latency round and two barriers:
+//   - its launch picks 1, 2 or 4 band slots per thread, the fewest that
+//     cover W, so that a diagonal's loads fit in registers;
+//   - every device-memory read of diagonal k is issued at the top of its
+//     iteration, before the first barrier;
+//   - one block reduction carries the row max, the bridge term and the
+//     F . B dot together (one barrier). The dot is taken on the raw row
+//     and scaled after: total = r * (sum F * raw + bridge * bvalid). The
+//     rows it keeps are raw * r, so mb is exactly the applied scale;
+//   - the second barrier rotates the carries in shared memory.
+// Its ring variant takes the streams off the chain: a ring of D <= 4
+// shared-memory stages, each one diagonal's efx, efy, efm, em, bv, F rows
+// and pm (contiguous segments of their (B, R, ...) tensors), filled by
+// TMA bulk copies D diagonals ahead, completion on one mbarrier per
+// stage; the row-constant shift bytes come one diagonal ahead into
+// registers. One extra warp issues the copies (eight instructions of one
+// thread per diagonal, which on a compute thread would lengthen the
+// chain): it meets the compute threads only at the
+// block barrier that ends a diagonal and frees its stage, and the
+// reduction uses a barrier of the compute threads alone. D is as many
+// stages as fit beside the carries in 227 KB. The launch runs the direct
+// variant (the same body reading device memory at the top of each
+// iteration, no producer warp) where W % 16 != 0 (bulk copies move
+// 16-byte multiples), a stream starts off the 16-byte grid, fewer than
+// two stages fit, or W > 1920 (4 slots on the ring's 480 compute
+// threads).
+//
+// wavefront_exp (EM's E-step) keeps the earlier backward body
+// (backward_body): the same recursion with the dot taken on the rescaled
+// rows and a barrier per reduction, plus, per cell, the posterior flow
+// into Baum-Welch expected counts. Its mb is wavefront_bwd's bit for bit;
+// its total_raw agrees to within the rounding of the dot's order. Its
 // neighbour rows F_{k-1} and F_{k-2} are read straight from the forward
 // intermediate (the TPU's 2-row halo block is tiling and has no
 // counterpart). The per-transition accumulators (13 or 9) live in
@@ -94,6 +121,10 @@ constexpr int kExpSlotsPerThread = 8;
 constexpr int kExpMaxThreads = 256;      // emission columns in shared memory
 constexpr int kExpWideThreads = 512;     // columns in the caller's scratch
 constexpr int kExpSharedWidth = kExpSlotsPerThread * kExpMaxThreads;
+constexpr int kMaxStages = 4;          // wavefront_bwd's ring of streams
+constexpr int kRingThreads = 480;      // its compute threads beside the producer warp
+constexpr size_t kSmemPerBlock = 232448;  // Hopper: 227 KB per block
+constexpr size_t kStaticSmem = 1024;      // room for the static shared arrays
 constexpr int kNormEvery = 4;
 
 constexpr int kPmMatch = 1;
@@ -432,12 +463,12 @@ struct BwdArgs {
   int k0;  // global diagonal of row 0
 };
 
-// The backward wavefront of one pair (this block's), high to low, with
-// the posteriors (kExp false: wavefront_bwd) or the expected counts
-// (kExp true: wavefront_exp) of each diagonal. Shared memory: B_{k+1},
-// B_{k+2} (S, W) each, bridgevec_{k+1} (W), and for kExp the emission
-// accumulators (S * 16, blockDim.x) unless kScratch puts them in p.eacc.
-template <int S, int kSlots, bool kExp, bool kScratch, bool kWindow>
+// wavefront_exp's body: the backward wavefront of one pair (this
+// block's), high to low, with the expected counts of each diagonal.
+// Shared memory: B_{k+1}, B_{k+2} (S, W) each, bridgevec_{k+1} (W), and
+// the emission accumulators (S * 16, blockDim.x) unless kScratch puts
+// them in p.eacc.
+template <int S, int kSlots, bool kScratch, bool kWindow>
 __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p, int R, int W,
                                               float* smem, float (*red)[32]) {
   float* b1s = smem;              // B_{k+1} (S, W)
@@ -446,10 +477,9 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  // kExp: (S * 16, nt) emission accumulators; thread tid owns column tid
+  // (S * 16, nt) emission accumulators; thread tid owns column tid
   float* eacc = kScratch ? p.eacc + (size_t)b * S * 16 * nt : bvn + W;
   const float* T = tr.v;
-  const bool all = p.post_x != nullptr;
   constexpr int kNz = Model<S>::kNz;
 
   // The recursion starts from the carry of the row above a window, or
@@ -460,12 +490,10 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
     b2s[j] = carry ? p.ci_b2[(size_t)b * S * W + j] : 0.f;
   }
   for (int j = tid; j < W; j += nt) bvn[j] = carry ? p.ci_bv[(size_t)b * W + j] : 0.f;
-  if constexpr (kExp) {
-    for (int j = tid; j < S * 16 * nt; j += nt) eacc[j] = 0.f;
-  }
-  float tacc[kExp ? kNz : 1];
+  for (int j = tid; j < S * 16 * nt; j += nt) eacc[j] = 0.f;
+  float tacc[kNz];
 #pragma unroll
-  for (int k = 0; k < (kExp ? kNz : 1); ++k) tacc[k] = 0.f;
+  for (int k = 0; k < kNz; ++k) tacc[k] = 0.f;
   float emn[kSlots];  // em_{k+1} of the thread's own slots
 #pragma unroll
   for (int q = 0; q < kSlots; ++q) {
@@ -532,7 +560,6 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
     }
     const float bridge = block_sum(lbr, red[1]);
 
-    float Fv[kExp ? 1 : kSlots][S];  // F_k of the thread's slots (posteriors)
     float ldot = 0.f;
 #pragma unroll
     for (int q = 0; q < kSlots; ++q) {
@@ -541,9 +568,7 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           raw[q][s] *= r;
-          const float fv = p.F[(row * S + s) * W + j];
-          if constexpr (!kExp) Fv[q][s] = fv;
-          ldot += fv * raw[q][s];
+          ldot += p.F[(row * S + s) * W + j] * raw[q][s];
         }
       }
     }
@@ -562,58 +587,44 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
     // neighbour at j-1+a, upper at j+a) and F_{k-2} (middle at j+dmid);
     // below row 0 a window reads its halo, the batch path zero (adj1 /
     // adj2 are zero there too)
+    const bool sa = p.a[row] != 0;
+    const int dl = sa ? 0 : -1;
+    const int du = sa ? 1 : 0;
+    const int dmf = p.b1[row] != 0 ? 1 : (p.b0[row] != 0 ? 0 : -1);
+    const float a1 = p.adj1[row];
+    const float a2 = p.adj2[row];
+    const float* halo = (kWindow && p.fhc) ? p.fhc + (size_t)b * 2 * S * W : nullptr;
     const float* F1 = nullptr;
     const float* F2 = nullptr;
-    int dl = 0, du = 0, dmf = 0;
-    float a1 = 0.f, a2 = 0.f;
-    if constexpr (kExp) {
-      const bool sa = p.a[row] != 0;
-      dl = sa ? 0 : -1;
-      du = sa ? 1 : 0;
-      dmf = p.b1[row] != 0 ? 1 : (p.b0[row] != 0 ? 0 : -1);
-      a1 = p.adj1[row];
-      a2 = p.adj2[row];
-      const float* halo =
-          (kWindow && p.fhc) ? p.fhc + (size_t)b * 2 * S * W : nullptr;
-      if (ii >= 1) F1 = p.F + (row - 1) * S * W;
-      else if (halo) F1 = halo + S * W;
-      if (ii >= 2) F2 = p.F + (row - 2) * S * W;
-      else if (halo) F2 = halo + ii * S * W;
-    }
+    if (ii >= 1) F1 = p.F + (row - 1) * S * W;
+    else if (halo) F1 = halo + S * W;
+    if (ii >= 2) F2 = p.F + (row - 2) * S * W;
+    else if (halo) F2 = halo + ii * S * W;
 
 #pragma unroll
     for (int q = 0; q < kSlots; ++q) {
       const int j = tid + q * nt;
       if (j < W) {
         const size_t o = row * W + j;
-        if constexpr (kExp) {
-          const float exa = p.ex[o] * a1;
-          const float eya = p.ey[o] * a1;
-          const float ema = p.em[o] * a2;
-          float lo[S], mid[S], up[S], bw[S], qv[S];
+        const float exa = p.ex[o] * a1;
+        const float eya = p.ey[o] * a1;
+        const float ema = p.em[o] * a2;
+        float lo[S], mid[S], up[S], bw[S], qv[S];
 #pragma unroll
-          for (int s = 0; s < S; ++s) {
-            lo[s] = F1 ? nb(F1 + s * W, j + dl, W) * exa : 0.f;
-            up[s] = F1 ? nb(F1 + s * W, j + du, W) * eya : 0.f;
-            mid[s] = F2 ? nb(F2 + s * W, j + dmf, W) * ema : 0.f;
-            bw[s] = raw[q][s] * invt;
-            qv[s] = 0.f;
-          }
-          Model<S>::exp(tacc, qv, lo, mid, up, bw, T);
-          const int sx = p.wx[o];
-          const int sy = p.wy[o];
-          if (sx < 4 && sy < 4) {
-            float* col = eacc + (sx * 4 + sy) * nt + tid;
+        for (int s = 0; s < S; ++s) {
+          lo[s] = F1 ? nb(F1 + s * W, j + dl, W) * exa : 0.f;
+          up[s] = F1 ? nb(F1 + s * W, j + du, W) * eya : 0.f;
+          mid[s] = F2 ? nb(F2 + s * W, j + dmf, W) * ema : 0.f;
+          bw[s] = raw[q][s] * invt;
+          qv[s] = 0.f;
+        }
+        Model<S>::exp(tacc, qv, lo, mid, up, bw, T);
+        const int sx = p.wx[o];
+        const int sy = p.wy[o];
+        if (sx < 4 && sy < 4) {
+          float* col = eacc + (sx * 4 + sy) * nt + tid;
 #pragma unroll
-            for (int s = 0; s < S; ++s) col[s * 16 * nt] += qv[s] * bw[s];
-          }
-        } else {
-          const int pb = p.pm[o];
-          p.post_m[o] = (pb & kPmMatch) ? Fv[q][0] * raw[q][0] * invt : 0.f;
-          if (all) {
-            p.post_x[o] = (pb & kPmGapX) ? Fv[q][1] * raw[q][1] * invt : 0.f;
-            p.post_y[o] = (pb & kPmGapY) ? Fv[q][2] * raw[q][2] * invt : 0.f;
-          }
+          for (int s = 0; s < S; ++s) col[s * 16 * nt] += qv[s] * bw[s];
         }
         // B_k replaces B_{k+2}; B_{k+1} becomes B_{k+2}, zeroed at k == L
 #pragma unroll
@@ -647,32 +658,22 @@ __device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p,
     if (tid == 0) p.co_invb[b] = invb;
   }
 
-  if constexpr (kExp) {
-    // The pair's counts: transitions by block reductions, emissions by
-    // one thread per (state, symbol pair) summing the threads' columns
-    // in order. The loop's final barrier precedes these reads.
-    float out[S * S];
+  // The pair's counts: transitions by block reductions, emissions by one
+  // thread per (state, symbol pair) summing the threads' columns in
+  // order. The loop's final barrier precedes these reads.
+  float out[S * S];
 #pragma unroll
-    for (int k = 0; k < S * S; ++k) out[k] = 0.f;
-    Model<S>::trans(out, tacc, red[0], T);
-    if (tid == 0) {
-      for (int k = 0; k < S * S; ++k) p.trans[(size_t)b * S * S + k] = out[k];
-    }
-    for (int k = tid; k < S * 16; k += nt) {
-      const float* rowp = eacc + k * nt;
-      float s = 0.f;
-      for (int c = 0; c < nt; ++c) s += rowp[c];
-      p.emis[(size_t)b * S * 16 + k] = s;
-    }
+  for (int k = 0; k < S * S; ++k) out[k] = 0.f;
+  Model<S>::trans(out, tacc, red[0], T);
+  if (tid == 0) {
+    for (int k = 0; k < S * S; ++k) p.trans[(size_t)b * S * S + k] = out[k];
   }
-}
-
-template <int S, bool kWindow>
-__global__ void __launch_bounds__(kMaxThreads)
-    wavefront_bwd(const Trans tr, const BwdArgs p, int R, int W) {
-  extern __shared__ float smem[];
-  __shared__ float red[3][32];
-  backward_body<S, kMaxSlotsPerThread, false, false, kWindow>(tr, p, R, W, smem, red);
+  for (int k = tid; k < S * 16; k += nt) {
+    const float* rowp = eacc + k * nt;
+    float s = 0.f;
+    for (int c = 0; c < nt; ++c) s += rowp[c];
+    p.emis[(size_t)b * S * 16 + k] = s;
+  }
 }
 
 template <int S, int kThreads, bool kWindow>
@@ -680,8 +681,342 @@ __global__ void __launch_bounds__(kThreads)
     wavefront_exp(const Trans tr, const BwdArgs p, int R, int W) {
   extern __shared__ float smem[];
   __shared__ float red[3][32];
-  backward_body<S, kExpSlotsPerThread, true, (kThreads > kExpMaxThreads), kWindow>(tr, p, R, W,
-                                                                                 smem, red);
+  backward_body<S, kExpSlotsPerThread, (kThreads > kExpMaxThreads), kWindow>(tr, p, R, W, smem,
+                                                                           red);
+}
+
+// ------------------------------------------------------------ wavefront_bwd
+//
+// The ring of streams: stage k holds one diagonal's efx, efy, efm, em, bv
+// (W floats each), F (S, W) and pm (W bytes), each one contiguous segment
+// of its (B, R, ...) tensor, filled by TMA bulk copies whose bytes land on
+// the stage's mbarrier. The four functions below are the only ones that
+// speak to the copy engine.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Arm `bar` (arrival count 1) for the copies of a fill.
+__device__ __forceinline__ void ring_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive on `bar` and expect `bytes` of copies in this phase.
+__device__ __forceinline__ void ring_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Bulk copy (TMA) of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, counted on `bar`.
+__device__ __forceinline__ void ring_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait for the phase of `bar` with this parity (its copies have landed).
+// A fill that never lands traps instead of hanging the card.
+__device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// Bytes of one ring stage.
+__host__ __device__ constexpr size_t stage_bytes(int S, int W) {
+  return (5 + (size_t)S) * W * sizeof(float) + W;
+}
+
+// Fill `stage` with diagonal `row` (a row of the (B, R) grid): one thread.
+template <int S>
+__device__ __forceinline__ void ring_fill(char* stage, uint64_t* bar, const BwdArgs& p,
+                                          size_t row, int W) {
+  const uint32_t wb = (uint32_t)W * sizeof(float);
+  float* d = reinterpret_cast<float*>(stage);
+  ring_expect(bar, (uint32_t)stage_bytes(S, W));
+  ring_copy(d, p.efx + row * W, wb, bar);
+  ring_copy(d + W, p.efy + row * W, wb, bar);
+  ring_copy(d + 2 * W, p.efm + row * W, wb, bar);
+  ring_copy(d + 3 * W, p.em + row * W, wb, bar);
+  ring_copy(d + 4 * W, p.bv + row * W, wb, bar);
+  ring_copy(d + 5 * W, p.F + row * S * W, S * wb, bar);
+  ring_copy(d + (5 + S) * W, p.pm + row * W, (uint32_t)W, bar);
+}
+
+// The five row-constant shift selects of one diagonal.
+struct RowBits {
+  int8_t abw, c1, c0, bm1, bm0;
+};
+
+__device__ __forceinline__ RowBits row_bits(const BwdArgs& p, size_t row) {
+  return {p.abw[row], p.c1[row], p.c0[row], p.bm1[row], p.bm0[row]};
+}
+
+// The compute threads' own barrier (named barrier 1, n threads): the
+// ring variant's producer warp takes no part in the block reduction.
+__device__ __forceinline__ void sync_compute(int n) {
+  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+}
+
+// Backward wavefront and posteriors of one pair (this block's), high to
+// low. The first nt threads compute, each owning kSlots band slots
+// j = tid + q * nt; kRing adds one producer warp after them, which fills
+// the ring. Shared memory: B_{k+1}, B_{k+2} (S, W) each, bridgevec_{k+1}
+// (W), then (kRing) D ring stages. Per diagonal: every device-memory read
+// is issued at the top (kRing: the producer issued them D diagonals
+// earlier into the ring, and the row-constant bytes come one diagonal
+// earlier into registers), one block reduction of (row max, bridge,
+// F.B dot) with the compute threads' barrier, then the outputs and the
+// new carries, and the block barrier that rotates them and frees the
+// diagonal's stage.
+template <int S, int kSlots, bool kRing, bool kWindow>
+__global__ void __launch_bounds__(kRing ? kRingThreads + 32 : kMaxThreads)
+    wavefront_bwd(const Trans tr, const BwdArgs p, int R, int W, int D) {
+  extern __shared__ __align__(16) float bwd_smem[];  // 16-byte aligned for the copies
+  __shared__ float red[3][32];                       // per warp: row max, bridge, dot
+  __shared__ uint64_t bars[kMaxStages];
+  float* smem = bwd_smem;
+  float* b1s = smem;              // B_{k+1} (S, W)
+  float* b2s = smem + S * W;      // B_{k+2} (S, W)
+  float* bvn = smem + 2 * S * W;  // bridgevec_{k+1} (W)
+  char* ring = reinterpret_cast<char*>(smem + (2 * S + 1) * W);
+  const size_t sbytes = stage_bytes(S, W);
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x - (kRing ? 32 : 0);  // compute threads
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nt >> 5;
+  const float* T = tr.v;
+  const bool all = p.post_x != nullptr;
+
+  if (kRing && tid >= nt) {
+    // The producer warp: stage s starts with diagonal R-1-s; once the
+    // block barrier that ends diagonal ii has freed its stage, one thread
+    // refills it with diagonal ii-D. It meets the compute threads only at
+    // the block barriers (one before the loop, one per diagonal).
+    if (tid == nt) {
+      for (int s = 0; s < D; ++s) ring_init(&bars[s]);
+      for (int s = 0; s < D && s < R; ++s)
+        ring_fill<S>(ring + s * sbytes, &bars[s], p, (size_t)b * R + R - 1 - s, W);
+    }
+    __syncthreads();
+    int st = 0;
+    for (int ii = R - 1; ii >= 0; --ii) {
+      __syncthreads();
+      if (tid == nt && ii >= D)
+        ring_fill<S>(ring + st * sbytes, &bars[st], p, (size_t)b * R + ii - D, W);
+      if (++st == D) st = 0;
+    }
+    return;
+  }
+
+  // The recursion starts from the carry of the row above a window, or
+  // past the last diagonal from zero carries.
+  constexpr bool carry = kWindow;
+  for (int j = tid; j < S * W; j += nt) {
+    b1s[j] = carry ? p.ci_b1[(size_t)b * S * W + j] : 0.f;
+    b2s[j] = carry ? p.ci_b2[(size_t)b * S * W + j] : 0.f;
+  }
+  for (int j = tid; j < W; j += nt) bvn[j] = carry ? p.ci_bv[(size_t)b * W + j] : 0.f;
+  float emn[kSlots];  // em_{k+1} of the thread's own slots
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const int j = tid + q * nt;
+    emn[q] = (carry && j < W) ? p.ci_em[(size_t)b * W + j] : 0.f;
+  }
+  float invb = carry ? p.ci_invb[b] : 1.f;  // 1/mb_{k+1}
+  RowBits next = {};
+  if constexpr (kRing) next = row_bits(p, (size_t)b * R + R - 1);
+  __syncthreads();
+
+  int st = 0;           // the ring stage of diagonal ii
+  uint32_t parity = 0;  // the phase of that stage's barrier
+  for (int ii = R - 1; ii >= 0; --ii) {
+    const size_t row = (size_t)b * R + ii;
+    const bool norm = ((kWindow ? p.k0 : 0) + ii) % kNormEvery == kNormEvery - 1;
+
+    // Every device-memory read of this diagonal, before its first barrier.
+    RowBits rb;
+    const float *gx, *gy, *gm, *ge, *gb, *gF;
+    const int8_t* gp;
+    if constexpr (kRing) {
+      rb = next;
+      if (ii >= 1) next = row_bits(p, row - 1);
+      ring_wait(&bars[st], parity);
+      gx = reinterpret_cast<const float*>(ring + st * sbytes);
+      gy = gx + W, gm = gx + 2 * W, ge = gx + 3 * W, gb = gx + 4 * W, gF = gx + 5 * W;
+      gp = reinterpret_cast<const int8_t*>(gx + (5 + S) * W);
+    } else {
+      rb = row_bits(p, row);
+      gx = p.efx + row * W, gy = p.efy + row * W, gm = p.efm + row * W;
+      ge = p.em + row * W, gb = p.bv + row * W, gF = p.F + row * S * W;
+      gp = p.pm + row * W;
+    }
+    const int pm0 = gp[0];  // row-constant bits live in every slot
+    float vx[kSlots], vy[kSlots], vm[kSlots], ve[kSlots], vb[kSlots], vF[kSlots][S];
+    int vp[kSlots];
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      const bool in = j < W;
+      vx[q] = in ? gx[j] : 0.f;
+      vy[q] = in ? gy[j] : 0.f;
+      vm[q] = in ? gm[j] : 0.f;
+      ve[q] = in ? ge[j] : 0.f;
+      vb[q] = in ? gb[j] : 0.f;
+      vp[q] = in ? gp[j] : 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) vF[q][s] = in ? gF[s * W + j] : 0.f;
+    }
+
+    const bool at_end = (pm0 & kPmAtEnd) != 0;
+    const bool bvalid = (pm0 & kPmBridge) != 0;
+    // receive from k+1: x-class at j+1-d1, y-class at j-d1; from k+2:
+    // m-class at j+1-dsum2; bridge vector at j+dmid_{k+1}
+    const bool sabw = rb.abw != 0;
+    const int dx = sabw ? 0 : 1;
+    const int dy = sabw ? -1 : 0;
+    const int dm = rb.c1 != 0 ? -1 : (rb.c0 != 0 ? 0 : 1);
+    const int db = rb.bm1 != 0 ? 1 : (rb.bm0 != 0 ? 0 : -1);
+
+    // raw B_k, and this thread's share of the row max, the bridge and the
+    // dot F_k . raw (the rescale r applies to the dot after the reduction)
+    float raw[kSlots][S];
+    float lmax = 0.f;
+    float lbr = 0.f;
+    float ldot = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+#pragma unroll
+      for (int s = 0; s < S; ++s) raw[q][s] = 0.f;
+      if (j < W) {
+        const float efmi = vm[q] * invb;
+        float bx[S], bm[S], by[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          bx[s] = nb(b1s + s * W, j + dx, W) * vx[q];
+          by[s] = nb(b1s + s * W, j + dy, W) * vy[q];
+          bm[s] = nb(b2s + s * W, j + dm, W) * efmi;
+        }
+        Model<S>::bwd(raw[q], bx, bm, by, T);
+        if (at_end) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) raw[q][s] = p.end_row[((size_t)b * S + s) * W + j];
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (norm) lmax = fmaxf(lmax, raw[q][s]);
+          ldot += vF[q][s] * raw[q][s];
+        }
+        lbr += nb(bvn, j + db, W) * emn[q] * b1s[j];
+      }
+    }
+
+    // One block reduction of (row max, bridge, dot): warp shuffles, one
+    // partial per warp, one barrier, every thread combines the partials
+    // in the same fixed order. The barrier also follows every read of the
+    // carries for this diagonal, so they may be rotated in place below.
+    for (int o = 16; o > 0; o >>= 1) {
+      if (norm) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      lbr += __shfl_xor_sync(0xffffffffu, lbr, o);
+      ldot += __shfl_xor_sync(0xffffffffu, ldot, o);
+    }
+    if (lane == 0) {
+      red[0][warp] = lmax;
+      red[1][warp] = lbr;
+      red[2][warp] = ldot;
+    }
+    sync_compute(nt);
+    float r = 1.f;
+    float mbv = 0.f;
+    if (norm) {
+      float m = red[0][0];
+      for (int k = 1; k < nw; ++k) m = fmaxf(m, red[0][k]);
+      if (!(m > 0.f) || at_end) m = 1.f;
+      r = 1.f / m;
+      mbv = logf(m);
+    }
+    float bridge = 0.f, dot = 0.f;
+    for (int k = 0; k < nw; ++k) {
+      bridge += red[1][k];
+      dot += red[2][k];
+    }
+    const float total = r * (dot + (bvalid ? bridge : 0.f));
+    const bool ok = total > 0.f;
+    const float invt = ok ? 1.f / total : 0.f;
+    if (tid == 0) {
+      p.mb[row] = mbv;
+      p.tot[row] = ok ? logf(total) : 0.f;
+    }
+
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      if (j < W) {
+        const size_t o = row * W + j;
+        float bk[S];  // B_k, exactly the rescaled row mb records
+#pragma unroll
+        for (int s = 0; s < S; ++s) bk[s] = raw[q][s] * r;
+        const int pb = vp[q];
+        p.post_m[o] = (pb & kPmMatch) ? vF[q][0] * bk[0] * invt : 0.f;
+        if (all) {
+          p.post_x[o] = (pb & kPmGapX) ? vF[q][1] * bk[1] * invt : 0.f;
+          p.post_y[o] = (pb & kPmGapY) ? vF[q][2] * bk[2] * invt : 0.f;
+        }
+        // B_k replaces B_{k+2}; B_{k+1} becomes B_{k+2}, zeroed at k == L
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          b2s[s * W + j] = bk[s];
+          if (at_end) b1s[s * W + j] = 0.f;
+        }
+        bvn[j] = vb[q];
+        emn[q] = ve[q];
+      }
+    }
+    invb = at_end ? 1.f : r;
+    __syncthreads();
+    float* tmp = b1s;
+    b1s = b2s;
+    b2s = tmp;
+    if constexpr (kRing) {
+      if (++st == D) {
+        st = 0;
+        parity ^= 1u;
+      }
+    }
+  }
+
+  // carry out of row 0 (the loop's final barrier precedes)
+  if (kWindow && p.co_b1 != nullptr) {
+    for (int j = tid; j < S * W; j += nt) {
+      p.co_b1[(size_t)b * S * W + j] = b1s[j];
+      p.co_b2[(size_t)b * S * W + j] = b2s[j];
+    }
+    for (int j = tid; j < W; j += nt) p.co_bv[(size_t)b * W + j] = bvn[j];
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      if (j < W) p.co_em[(size_t)b * W + j] = emn[q];
+    }
+    if (tid == 0) p.co_invb[b] = invb;
+  }
 }
 
 int threads_for(int W) {
@@ -711,14 +1046,61 @@ int launch_fwd(const float* t_host, const float* ex, const float* ey, const floa
   return (int)cudaGetLastError();
 }
 
+// wavefront_bwd's launch at (S, W): ring depth D (0: the direct-load
+// variant), threads, kSlots band slots per compute thread and dynamic
+// shared memory. D is as many stages as fit beside the carries, at most
+// kMaxStages; the ring needs W % 16 == 0 (16-byte bulk copies), streams
+// on the 16-byte grid (`aligned`), at least two stages, and
+// W <= 4 * kRingThreads. Slots: 1, 2 or 4, the fewest that cover W with
+// at most kRingThreads compute threads (ring: fewer, fuller threads make
+// the block reduction and barriers cheaper, with the registers of a
+// 512-thread launch) or kMaxThreads (direct loads).
+struct BwdPlan {
+  int threads, slots, depth;
+  size_t smem;
+};
+
+BwdPlan bwd_plan(int S, int W, bool aligned) {
+  const size_t carries = (2 * (size_t)S + 1) * W * sizeof(float);
+  const size_t fit = (kSmemPerBlock - kStaticSmem - carries) / stage_bytes(S, W);
+  int depth = (int)std::min<size_t>(kMaxStages, fit);
+  if (!aligned || W % 16 != 0 || depth < 2 || W > 4 * kRingThreads) depth = 0;
+  const int cap = depth ? kRingThreads : kMaxThreads;
+  const int slots = W <= cap ? 1 : W <= 2 * cap ? 2 : 4;
+  const int compute = ((W + slots - 1) / slots + 31) / 32 * 32;
+  return {compute + (depth ? 32 : 0), slots, depth, carries + depth * stage_bytes(S, W)};
+}
+
+// The streams the ring copies start on 16-byte boundaries.
+bool ring_aligned(const BwdArgs& p) {
+  const void* ptrs[] = {p.efx, p.efy, p.efm, p.em, p.bv, p.F, p.pm};
+  for (const void* q : ptrs)
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
+  return true;
+}
+
+using BwdKernel = void (*)(Trans, BwdArgs, int, int, int);
+
+template <int S, int kSlots, bool kRing>
+BwdKernel bwd_kernel(bool window) {
+  return window ? wavefront_bwd<S, kSlots, kRing, true> : wavefront_bwd<S, kSlots, kRing, false>;
+}
+
 template <int S>
 int launch_bwd(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaStream_t stream) {
-  const size_t smem = (2 * (size_t)S + 1) * W * sizeof(float);
-  auto kernel = p.ci_b1 != nullptr ? wavefront_bwd<S, true> : wavefront_bwd<S, false>;
+  const BwdPlan pl = bwd_plan(S, W, ring_aligned(p));
+  const bool window = p.ci_b1 != nullptr;
+  const bool ring = pl.depth > 0;
+  BwdKernel kernel = pl.slots == 1   ? (ring ? bwd_kernel<S, 1, true>(window)
+                                             : bwd_kernel<S, 1, false>(window))
+                     : pl.slots == 2 ? (ring ? bwd_kernel<S, 2, true>(window)
+                                             : bwd_kernel<S, 2, false>(window))
+                                     : (ring ? bwd_kernel<S, 4, true>(window)
+                                             : bwd_kernel<S, 4, false>(window));
   cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<B, threads_for(W), smem, stream>>>(load_trans(S, t_host), p, R, W);
+  kernel<<<B, pl.threads, pl.smem, stream>>>(load_trans(S, t_host), p, R, W, pl.depth);
   return (int)cudaGetLastError();
 }
 
@@ -838,6 +1220,16 @@ int cpecan_wavefront_exp(int S, const float* t_host, const float* efx, const flo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S == 5) return launch_exp<5>(t_host, p, B, R, W, st);
   return launch_exp<3>(t_host, p, B, R, W, st);
+}
+
+// wavefront_bwd's launch at (S, W) for streams on the 16-byte grid
+// (aligned != 0) or off it: out = {threads, band slots per compute
+// thread, ring depth (0: direct loads), dynamic shared memory bytes}.
+int cpecan_wavefront_bwd_plan(int S, int W, int aligned, int* out) {
+  if (bad_shape(S, 1, 1, W)) return (int)cudaErrorInvalidValue;
+  const BwdPlan pl = bwd_plan(S, W, aligned != 0);
+  out[0] = pl.threads, out[1] = pl.slots, out[2] = pl.depth, out[3] = (int)pl.smem;
+  return 0;
 }
 
 const char* cpecan_cuda_error_string(int err) {

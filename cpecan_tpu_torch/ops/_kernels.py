@@ -34,6 +34,7 @@ _SIGNATURES = {  # (S, pointers..., B, R, W, k0, stream)
     "cpecan_wavefront_fwd": [_I] + [_P] * 17 + [_I] * 4 + [_P],
     "cpecan_wavefront_bwd": [_I] + [_P] * 29 + [_I] * 4 + [_P],
     "cpecan_wavefront_exp": [_I] + [_P] * 39 + [_I] * 4 + [_P],
+    "cpecan_wavefront_bwd_plan": [_I, _I, _I, _P],  # (S, W, aligned, int[4] out)
 }
 
 

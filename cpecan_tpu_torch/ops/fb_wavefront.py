@@ -736,6 +736,20 @@ def bwd(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row, nz,
     return (posts, mb, tot) if carry is None else (posts, mb, tot, co)
 
 
+def bwd_plan(S: int, W: int, aligned: bool = True) -> dict:
+    """The launch ``wavefront_bwd`` takes at (S, W), for streams that start
+    on 16-byte boundaries (``aligned``) or not: threads, band slots per
+    compute thread, the depth of its ring of streams in shared memory (0:
+    the variant that loads them directly) and its dynamic shared memory
+    in bytes. Builds the kernel library on first use."""
+    out = (ctypes.c_int * 4)()
+    err = _kernels.load().cpecan_wavefront_bwd_plan(
+        S, W, int(aligned), ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise ValueError(f"bwd_plan: no launch for S={S}, W={W}")
+    return dict(zip(("threads", "slots", "depth", "smem"), out))
+
+
 def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
         b0, pm, end_row, adj1, adj2, wx, wy, nz, halo=None, carry=None, k0=0,
         site="exp"):

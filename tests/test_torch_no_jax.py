@@ -1,8 +1,8 @@
 """The PyTorch port imports neither jax nor anything of the JAX package
 (cpecan_tpu), not even a module of it that has no jax in it: neither
 directly (AST scan of every module) nor through what it imports (a fresh
-interpreter imports every module of the package and chip_smoke.py's
-imports, and checks sys.modules)."""
+interpreter imports every module of the package, chip_smoke.py and
+kernel_ab.py, and checks sys.modules)."""
 
 import ast
 import os
@@ -60,7 +60,7 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_importing_every_module_loads_no_jax():
-    mods = [m for _, m in _modules()] + ["chip_smoke"]
+    mods = [m for _, m in _modules()] + ["chip_smoke", "kernel_ab"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

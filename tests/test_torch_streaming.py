@@ -405,3 +405,29 @@ def test_parallel_kernels_match_plain_versions_on_card(cuda_device,
     launches, _ = _card_against_cpu(cuda_device, sm_factory(), mode,
                                     "parallel")
     assert launches["par_fwd"] == launches["par_bwd"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 1664])
+@pytest.mark.parametrize("sm_factory", [state_machine5, state_machine3])
+def test_bwd_window_kernel_with_carries_on_card(cuda_device, W, sm_factory):
+    """One window of wavefront_bwd at ring widths, with a random carry in
+    and k0 = 5 (rescale phase 1 off the batch path's): posteriors, mb,
+    total_raw and the carry out of row 0 against bwd_reference."""
+    from test_torch_wavefront import assert_bwd_close, random_bwd_inputs
+
+    hmm = PairHMM.from_state_machine(sm_factory())
+    assert fb_wavefront.bwd_plan(hmm.state_number, W)["depth"] >= 2
+    args, carry = random_bwd_inputs(np.random.default_rng(W + 1), hmm, 2, 45,
+                                    W, carry=True)
+    dev = lambda a: a.to(cuda_device) if torch.is_tensor(a) else a
+    args = [args[0]] + [dev(a) for a in args[1:]]
+    carry = tuple(dev(c) for c in carry)
+    fb_wavefront.reset_launch_counts()
+    got = fb_wavefront.bwd(*args, "posterior_all", carry=carry, k0=5,
+                           site="seg_bwd")
+    want = fb_wavefront.bwd_reference(*args, "posterior_all", carry=carry,
+                                      k0=5)
+    torch.cuda.synchronize()
+    assert fb_wavefront.LAUNCHES["seg_bwd"] == 1
+    assert_bwd_close(got, want, f"window S={hmm.state_number} W={W}")

@@ -325,3 +325,104 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda_device):
         fb_wavefront.fwd(*fin[:4], pre["a"], *fin[5:])
     with pytest.raises(ValueError):
         fb_wavefront.fwd(*fin[:-1], fin[-1] + ((0, 1, 2),))
+
+
+# --------------------------------------------------------------------------
+# On the card: wavefront_bwd in each of its launch variants
+# --------------------------------------------------------------------------
+
+# every ring depth (4, 3, 2), the direct loads (W % 16 != 0, too little
+# shared memory for two stages, W > 1920) and 1, 2 and 4 slots per thread
+BWD_WIDTHS = (32, 40, 128, 544, 1664, 2048, 4096)
+# wavefront_bwd's ring depth per (S, W) for 16-byte-aligned streams
+BWD_DEPTHS = {5: {32: 4, 40: 0, 128: 4, 544: 4, 1664: 2, 2048: 0, 4096: 0},
+              3: {32: 4, 40: 0, 128: 4, 544: 4, 1664: 3, 2048: 0, 4096: 0}}
+
+
+def random_bwd_inputs(rng, hmm, B, R, W, carry=False):
+    """wavefront_bwd's inputs filled at random, so that every slot of every
+    diagonal holds data (a padded pair's band leaves most of a wide W
+    zero): streams in [0.1, 1), F, bv and end_row in [0, 1), random shift
+    selects and posterior gates, the at-end and bridge bits of pm
+    row-constant as precompute makes them (one at-end row per pair). With
+    ``carry`` also a random carry in (B_{k1}, B_{k1+1}, 1/mb, em, bv).
+    CPU tensors, in the argument order of ``fb_wavefront.bwd``."""
+    S = hmm.state_number
+
+    def unif(*shape, lo=0.0):
+        return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(np.float32))
+
+    def bits(*shape):
+        return torch.from_numpy((rng.random(shape) < 0.5).astype(np.int8))
+
+    row = np.where(rng.random((B, R)) < 0.7, 16, 0)
+    row[np.arange(B), rng.integers(R // 2, R, B)] |= 8
+    pm = rng.integers(0, 8, (B, R, W)) | row[..., None]
+    args = [hmm.t_prob_host, *(unif(B, R, W, lo=0.1) for _ in range(4)),
+            unif(B, R, S, W), unif(B, R, W), *(bits(B, R) for _ in range(5)),
+            torch.from_numpy(pm.astype(np.int8)), unif(B, S, W), hmm.nz]
+    if not carry:
+        return args
+    return args, (unif(B, S, W), unif(B, S, W), 0.5 + 1.5 * unif(B),
+                  unif(B, W), unif(B, W))
+
+
+def assert_bwd_close(got, want, what):
+    """bwd outputs (posts, mb, total_raw[, carry out]) within TOLERANCES
+    (the carry out, like F and bv in chip_smoke.py, at rtol 1e-4)."""
+    keys = ("post_match", "post_gap_x", "post_gap_y")
+    pairs = [(keys[i], g, w) for i, (g, w) in enumerate(zip(got[0], want[0]))]
+    pairs += [("mb", got[1], want[1]), ("total_raw", got[2], want[2])]
+    if len(want) > 3:
+        pairs += [(f"carry {i}", g, w)
+                  for i, (g, w) in enumerate(zip(got[3], want[3]))]
+    for key, g, w in pairs:
+        g = g.cpu()
+        assert torch.isfinite(g).all(), (what, key)
+        rtol, atol = TOLERANCES.get(key, (1e-4, 1e-6))
+        torch.testing.assert_close(g, w.cpu(), rtol=rtol, atol=atol,
+                                   msg=f"{what} {key}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", BWD_WIDTHS)
+@pytest.mark.parametrize("sm_factory,mode", [
+    (state_machine5, "posterior_match"), (state_machine5, "posterior_all"),
+    (state_machine3, "posterior_match"), (state_machine3, "posterior_all")])
+def test_bwd_kernel_launch_variants_on_card(cuda_device, W, sm_factory, mode):
+    """wavefront_bwd against bwd_reference on the same card tensors at
+    widths that run each ring depth and the direct loads (67 diagonals:
+    the ring wraps many times, and 67 % 4 != 0 leaves a partial round)."""
+    hmm = PairHMM.from_state_machine(sm_factory())
+    S = hmm.state_number
+    assert fb_wavefront.bwd_plan(S, W)["depth"] == BWD_DEPTHS[S][W]
+    args = random_bwd_inputs(np.random.default_rng(W), hmm, 3, 67, W)
+    args = [args[0]] + [a.to(cuda_device) if torch.is_tensor(a) else a
+                        for a in args[1:]]
+    fb_wavefront.reset_launch_counts()
+    got = fb_wavefront.bwd(*args, mode)
+    want = fb_wavefront.bwd_reference(*args, mode)
+    torch.cuda.synchronize()
+    assert fb_wavefront.LAUNCHES["bwd"] == 1
+    assert_bwd_close(got, want, f"S={S} W={W} {mode}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 1664])
+def test_bwd_kernel_off_grid_streams_on_card(cuda_device, W):
+    """A stream that starts off the 16-byte grid (here pm, one byte in)
+    cannot feed the ring's bulk copies: the launch runs the direct-load
+    variant, and the outputs still match bwd_reference."""
+    hmm = PairHMM.from_state_machine(state_machine5())
+    assert fb_wavefront.bwd_plan(5, W)["depth"] >= 2
+    args = random_bwd_inputs(np.random.default_rng(W + 2), hmm, 2, 37, W)
+    args = [args[0]] + [a.to(cuda_device) if torch.is_tensor(a) else a
+                        for a in args[1:]]
+    pm = args[12]
+    buf = torch.empty(pm.numel() + 16, dtype=pm.dtype, device=cuda_device)
+    args[12] = buf[1:1 + pm.numel()].view(pm.shape)
+    args[12].copy_(pm)
+    got = fb_wavefront.bwd(*args, "posterior_all")
+    want = fb_wavefront.bwd_reference(*args, "posterior_all")
+    torch.cuda.synchronize()
+    assert_bwd_close(got, want, f"off-grid pm W={W}")
