@@ -12,11 +12,12 @@ Phases (any failure raises, so the exit code is non-zero):
      plain PyTorch versions on the same card tensors, check the
      tolerances, and time both per call; on the headline and the 3-state
      batch the same for the expectation kernel, and on a full band of
-     2.5 kb pairs for its wide variant (W > 2048); then the backward
-     kernel across band widths 32-4096 (B=64, R=1025): against its plain
-     version, its launch plan (ring depth, shared memory), time, us per
-     diagonal, share of the bound and ptxas registers/spills, with its
-     direct-load variant beside the ring where it has one;
+     2.5 kb pairs with its emission bins in device scratch (W > 2048);
+     then the backward kernel across band widths 32-4096 (B=64, R=1025),
+     and the expectation kernel across the same and two more: against
+     its plain version, its launch plan (ring depth, shared memory), time,
+     us per diagonal, share of the bound and ptxas registers/spills, with
+     its direct-load variant beside the ring where it has one;
   4. realign main path: cpecan_tpu_torch.cli.realign.main on 1024
      generated 1 kb record pairs (default decode) and 256 of them with
      --mea, with every kernel's launch count reset before and read after;
@@ -55,7 +56,15 @@ Phases (any failure raises, so the exit code is non-zero):
  11. EM with long records: one 5-state iteration over 2 x 100 kb records
      and 32 short ones (segmented exp kernel), the exact engine's counts
      and likelihood on one long chunk against the two-pass kernels', and
-     card against CPU (2 iterations) with every chunk made to stream.
+     card against CPU (2 iterations) with every chunk made to stream;
+ 12. wide bands (W > 4096, the kernels' wide variants): the batch path's
+     three kernels on a full band of 1 kb pairs padded out to W=4352 and
+     to an off-grid 8200 against their plain versions, with times; a record with an
+     anchor-free 4.5 kb gap through the realign CLI (parallel engine) and
+     one EM iteration (exact engine) with --splitMatrixBiggerThanThis
+     5000, launch counts reset before and read after each, the widest
+     window launch of each site against its plain version, and the
+     record's pairs against the plain versions' on the same card tensors.
 
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Imports no jax and nothing of cpecan_tpu
@@ -128,12 +137,15 @@ def phase_device():
 
 def _instantiation(kernel, args):
     """A kernel instantiation's name from its mangled template arguments:
-    fwd<S,batch|window>, exp<S,threads,batch|window>,
-    bwd<S,slots,ring|direct,batch|window>."""
+    fwd<S,batch|window>, bwd<S,slots,ring|direct,batch|window>,
+    exp<S,slots,ring|direct,batch|window>, fwd_wide<S,batch|window>,
+    back_wide<S,bwd|exp,batch|window>."""
     vals = [v for _, v in re.findall(r"L([ib])(\d+)E", args)]
     vals[-1] = "window" if vals[-1] == "1" else "batch"
-    if kernel == "wavefront_bwd":
+    if kernel in ("wavefront_bwd", "wavefront_exp"):
         vals[2] = "ring" if vals[2] == "1" else "direct"
+    if kernel == "wavefront_back_wide":
+        vals[1] = "exp" if vals[1] == "1" else "bwd"
     return f"{kernel}<{','.join(vals)}>"
 
 
@@ -151,7 +163,7 @@ def phase_build():
         + ("" if diagnostics else " (already built)"))
     ptxas, name = {}, None
     for line in diagnostics.splitlines():
-        m = re.search(r"entry function .*(wavefront_\w{3})I((?:L[ib]\d+E)+)E", line)
+        m = re.search(r"entry function .*(wavefront_\w+?)I((?:L[ib]\d+E)+)E", line)
         if m:
             name = _instantiation(m[1], m[2])
             log(f"  ptxas: {name}")
@@ -464,9 +476,9 @@ def phase_kernels(card):
                 summary["exp"]["plain_ms"] = ems["exp_plain"]
                 summary["exp"]["bound"] = _bound(*shape, "exp")
             torch.cuda.empty_cache()
-    # exp's wide variant (512 threads, emission bins in device scratch):
-    # a full band of evolved 2.5 kb pairs, as an unanchored multi-kb gap
-    # of an EM chunk gives it
+    # exp with its emission bins in device scratch (W > 2048: 8 slots on
+    # 512 threads): a full band of evolved 2.5 kb pairs, as an unanchored
+    # multi-kb gap of an EM chunk gives it
     hmm = PairHMM.from_state_machine(state_machine5()).cuda()
     bt = _band_batch(np.random.default_rng(1), 4, 5120, "posterior_match",
                      state_machine5, full=True, evolve=True, seq_len=2500)
@@ -557,6 +569,93 @@ def phase_bwd_sweep(card, ptxas):
         del bt, pre, F, bv, bin_, want, variants
         torch.cuda.empty_cache()
     log(f"bwd sweep: {time.perf_counter() - t0:.1f} s")
+
+
+# exp's width sweep: bwd's widths and the ones that give its 2-slot ring
+# (384) and its 3-stage ring (768)
+EXP_SWEEP_WIDTHS = (32, 128, 384, 544, 768, 1024, 1664, 2048, 4096)
+
+
+def _exp_inputs(wf, hmm, pre):
+    """The forward pass on precompute's streams, then exp's arguments."""
+    t = hmm.t_prob_host
+    F, bv, mf = wf.fwd(t, pre["ex"], pre["ey"], pre["em"], pre["a"], pre["b1"],
+                       pre["b0"], pre["F0"], hmm.nz)
+    adj1, adj2 = wf.scale_adjustments(mf)
+    return [t, pre["efx"], pre["efy"], pre["efm"], pre["em"], pre["ex"],
+            pre["ey"], F, bv, pre["abw"], pre["c1"], pre["c0"], pre["bm1"],
+            pre["bm0"], pre["a"], pre["b1"], pre["b0"], pre["pm"],
+            pre["end_row"], adj1, adj2, pre["wx"], pre["wy"], hmm.nz]
+
+
+def _exp_errs(got, want, L):
+    """exp outputs against exp_reference's: counts within EXP_RTOL, mb and
+    total_raw (rows 1..L) within 1e-5 absolute. Returns the max abs error
+    and the counts' max relative one."""
+    rows = torch.arange(got[2].shape[1])[None, :]
+    keep = (rows >= 1) & (rows <= L.cpu()[:, None])
+    err, rel = 0.0, 0.0
+    for k, g, w_ in zip(("trans", "emis", "mb", "total_raw"), got, want):
+        g, w_ = g.float().cpu(), w_.float().cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"exp output {k} is not finite")
+        if k == "total_raw":
+            g, w_ = g[keep], w_[keep]
+        tol = (EXP_RTOL, 1e-6) if k in ("trans", "emis") else (0.0, 1e-5)
+        torch.testing.assert_close(g, w_, rtol=tol[0], atol=tol[1], msg=k)
+        err = max(err, float((g - w_).abs().max()))
+        if k in ("trans", "emis"):
+            rel = max(rel, float(((g - w_).abs() / w_.abs().clamp_min(1e-30)).max()))
+    return err, rel
+
+
+def phase_exp_sweep(card, ptxas):
+    """wavefront_exp across band widths on the bwd sweep's batch shape
+    (B=SWEEP_B identical 512 bp pairs, R = 1025, bands padded out to W),
+    5-state: the kernel against exp_reference on the same card tensors,
+    and per width its launch plan, time and us per diagonal, share of the
+    bound and the ptxas line of the instantiation that ran. Where the plan
+    has a ring, the direct-load variant (wx off the 16-byte grid) is
+    checked and timed beside it. Returns {(W, variant): ms}."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    t0 = time.perf_counter()
+    hmm = PairHMM.from_state_machine(state_machine5()).cuda()
+    S = hmm.state_number
+    rng = np.random.default_rng(12)
+    out = {}
+    for W in EXP_SWEEP_WIDTHS:
+        bt = _band_batch(rng, SWEEP_B, SWEEP_P, "expectation", state_machine5,
+                         anchor_every=1 if W == 32 else 50,
+                         seq_len=SWEEP_P // 2, width=W)
+        ein = _exp_inputs(wf, hmm, wf.precompute(hmm, *bt["args"], width=W))
+        want = wf.exp_reference(*ein)
+        L = bt["args"][4].long() + bt["args"][5].long()
+        grid = all(ein[i].data_ptr() % 16 == 0 for i in (1, 2, 3, 4, 5, 6, 7, 8, 21, 22))
+        ring = wf.exp_plan(S, W)["depth"] > 0 and grid
+        variants = [("ring" if ring else "direct", ein)]
+        if ring:
+            variants.append(("direct", ein[:21] + [_off_grid(ein[21])] + ein[22:]))
+        B, R, _ = ein[1].shape
+        bms, by = _bound(B, R, W, S, hmm.nz, "exp")
+        log(f"exp sweep W={W}: B={B} R={R}; bound {bms:.4f} ms ({by})")
+        for name, args in variants:
+            plan = wf.exp_plan(S, W, aligned=name == "ring")
+            err, rel = _exp_errs(wf.exp(*args), want, L)
+            ms = _median_ms(lambda: wf.exp(*args), 5)
+            out[(W, name)] = ms
+            inst = f"wavefront_exp<{S},{plan['slots']},{name},batch>"
+            log(f"  {name}: {plan['threads']} threads x {plan['slots']} slots, "
+                f"ring depth {plan['depth']}, shared memory {plan['smem']} B "
+                f"per block; {ms:.3f} ms ({1e3 * ms / R:.3f} us per diagonal, "
+                f"{100 * bms / ms:.1f}% of the bound), max abs err {err:.3g}, "
+                f"counts {rel:.3g} relative ({card}); ptxas {inst}: "
+                f"{ptxas.get(inst, 'not reported (library already built)')}")
+        del bt, ein, want, variants
+        torch.cuda.empty_cache()
+    log(f"exp sweep: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------ main path
@@ -946,15 +1045,24 @@ SITES = {
                 "wavefront_fwd_parallel"),
     "par_bwd": ("bwd", "cpecan_tpu/ops/fb_parallel.py:313",
                 "wavefront_bwd_parallel"),
+    # the wide variants (W > MAX_KERNEL_WIDTH), counted at every site
+    "wide_fwd": ("fwd", "cpecan_tpu/ops/fb_wavefront.py:235",
+                 "wavefront_fwd_wide"),
+    "wide_bwd": ("bwd", "cpecan_tpu/ops/fb_wavefront.py:404",
+                 "wavefront_bwd_wide"),
+    "wide_exp": ("exp", "cpecan_tpu/ops/fb_wavefront.py:592",
+                 "wavefront_exp_wide"),
 }
 LONG_SITES = ("seg_fwd", "seg_bwd", "seg_exp", "par_fwd", "par_bwd")
+WIDE_SITES = ("wide_fwd", "wide_bwd", "wide_exp")
 
 
 @contextlib.contextmanager
-def _capture(sites):
+def _capture(sites, size=lambda args: args[1].numel()):
     """Keep, for each launch-count site in ``sites``, the arguments of its
-    largest wrapper call while the block runs (every call goes through).
-    Yields {site: (args, kwargs)}."""
+    largest wrapper call (by ``size``: the stream's elements, or another
+    measure) while the block runs (every call goes through). Yields
+    {site: (args, kwargs)}."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     saved = wf.fwd, wf.bwd, wf.exp
@@ -963,8 +1071,8 @@ def _capture(sites):
     def wrap(fn, default):
         def call(*args, site=default, **kw):
             out = fn(*args, site=site, **kw)
-            if site in sites and args[1].numel() > sizes.get(site, -1):
-                kept[site], sizes[site] = (args, kw), args[1].numel()
+            if site in sites and size(args) > sizes.get(site, -1):
+                kept[site], sizes[site] = (args, kw), size(args)
             return out
         return call
 
@@ -1040,10 +1148,12 @@ def _bwd_direct(args, kw, S, W, reps, ring_out):
     """Where wavefront_bwd's plan at (S, W) has a ring: the same launch
     with pm off the 16-byte grid, which runs the direct-load variant; its
     outputs within TOLERANCES of ``ring_out`` (the ring variant's) and
-    its CUDA-event median in ms. None where the plan has no ring."""
+    its CUDA-event median in ms. None where the plan has no ring (and for
+    the wide variant)."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
-    if not wf.bwd_plan(S, W)["depth"] or not _on_grid(args):
+    if (W > wf.MAX_KERNEL_WIDTH or not wf.bwd_plan(S, W)["depth"]
+            or not _on_grid(args)):
         return None
     moved = list(args)
     moved[12] = _off_grid(args[12])
@@ -1347,9 +1457,6 @@ def phase_long_pair(card, sites):
     L = band.diagonal_number
     args = (hmm, t.sub_x, t.sub_y, band, "posterior_match", W,
             fb_streaming.window_rows(p), fb_parallel.burnin_rows(p))
-    if W > wf.MAX_KERNEL_WIDTH:
-        raise AssertionError(f"the longest chunk has W={W} > the kernels' "
-                             f"{wf.MAX_KERNEL_WIDTH}")
     torch.cuda.synchronize()
     wf.reset_launch_counts()
     with _capture(("seg_fwd", "seg_bwd")) as kept:
@@ -1580,6 +1687,183 @@ def phase_long_em(card, tmp, short_seqs, short_cigars, sites):
         f"{worst[2]:.3g}")
 
 
+# bands wider than the shared-memory variants take (wide variants): a
+# full band of two evolved 1 kb pairs padded out to these widths (the
+# second off the 16-byte grid; the kernels' work per diagonal is set by
+# W, while the plain versions' time grows with R); and a record whose cigar leaves an anchor-free 4.5 kb gap
+# between two 1 kb flanks, realigned (and trained on) with the split at
+# 5000 x 5000, so the gap stays in one chunk
+WIDE_WIDTHS = (4352, 8200)
+GAP_FLANK, GAP_MIDDLE = 1000, 4500
+GAP_SPLIT = ["--splitMatrixBiggerThanThis", "5000"]
+
+
+def _timed(fn):
+    """(output, ms) of one call, CUDA events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _wide_batch(card, sites):
+    """The batch path's three kernels at W > MAX_KERNEL_WIDTH (the wide
+    variants) against their plain versions on the same card tensors, with
+    times; the first width's numbers go to the JSON summary."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    hmm = PairHMM.from_state_machine(state_machine5()).cuda()
+    S = hmm.state_number
+    for width in WIDE_WIDTHS:
+        bt = _band_batch(np.random.default_rng(5), 2, 2 * SEQ_LEN + 200,
+                         "posterior_all", state_machine5, full=True,
+                         evolve=True, seq_len=SEQ_LEN, width=width)
+        W = bt["W"]
+        if W <= wf.MAX_KERNEL_WIDTH:
+            raise AssertionError(f"wide batch has W={W}")
+        pre = wf.precompute(hmm, *bt["args"], width=W)
+        L = bt["args"][4].long() + bt["args"][5].long()
+        ein = _exp_inputs(wf, hmm, pre)
+        fin = (ein[0], pre["ex"], pre["ey"], pre["em"], pre["a"], pre["b1"],
+               pre["b0"], pre["F0"], hmm.nz)
+        bin_ = (*ein[:5], *ein[7:14], pre["pm"], pre["end_row"], hmm.nz,
+                "posterior_all")
+        B, R, _ = pre["ex"].shape
+        wf.reset_launch_counts()
+        res = {}
+        for k, args in (("fwd", fin), ("bwd", bin_), ("exp", ein)):
+            got = getattr(wf, k)(*args)
+            ms = _median_ms(lambda: getattr(wf, k)(*args), 3)
+            want, plain_ms = _timed(lambda: getattr(wf, f"{k}_reference")(*args))
+            if k == "fwd":
+                err = max(_max_err({"mf": got[2]}, {"mf": want[2]}, L).values())
+                torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
+            elif k == "bwd":
+                keys = ("post_match", "post_gap_x", "post_gap_y")
+                err = max(_max_err(
+                    {**dict(zip(keys, got[0])), "mb": got[1], "total_raw": got[2]},
+                    {**dict(zip(keys, want[0])), "mb": want[1], "total_raw": want[2]},
+                    L).values())
+            else:
+                err = _exp_errs(got, want, L)[0]
+            res[k] = (err, ms, plain_ms, _bound(B, R, W, S, hmm.nz, k))
+            log(f"wide {k}: B={B} R={R} W={W}; kernel {ms:.3f} ms "
+                f"({1e3 * ms / R:.2f} us per diagonal), plain {plain_ms:.1f} ms, "
+                f"bound {res[k][3][0]:.4f} ms ({res[k][3][1]}), max abs err "
+                f"{err:.3g} ({card})")
+        if any(wf.LAUNCHES[f"wide_{k}"] <= 0 for k in ("fwd", "bwd", "exp")):
+            raise AssertionError(f"wide variants not launched: {wf.LAUNCHES}")
+        for k, (err, ms, plain_ms, bound) in res.items():
+            v = sites[f"wide_{k}"]
+            v["err"] = max(v["err"], err)
+            if width == WIDE_WIDTHS[0]:
+                v.update(ms=ms, plain_ms=plain_ms, bound=bound)
+        del bt, pre, ein, fin, bin_
+        torch.cuda.empty_cache()
+
+
+def _gap_record(seed):
+    """A record pair around an anchor-free gap: x is random, y keeps x's
+    1 kb flanks and carries an evolved copy of its 4.5 kb middle; the
+    cigar matches the flanks base for base and leaves the middle as one
+    deletion and one insertion. Returns (sequences, [cigar])."""
+    from cpecan_tpu_torch.cli.realign import cigar_io
+
+    rng = np.random.default_rng(seed)
+    x = _ACGT[rng.integers(0, 4, 2 * GAP_FLANK + GAP_MIDDLE)].tobytes().decode()
+    mid = _evolve(x[GAP_FLANK:GAP_FLANK + GAP_MIDDLE], rng)
+    y = x[:GAP_FLANK] + mid + x[GAP_FLANK + GAP_MIDDLE:]
+    ops = [(cigar_io.MATCH, GAP_FLANK), (cigar_io.INDEL_X, GAP_MIDDLE),
+           (cigar_io.INDEL_Y, len(mid)), (cigar_io.MATCH, GAP_FLANK)]
+    cig = cigar_io.PairwiseAlignment("gapx", 0, len(x), True, "gapy", 0, len(y),
+                                     True, 0.0, ops)
+    return {"gapx": x, "gapy": y}, [cig]
+
+
+def phase_wide(card, tmp, sites):
+    """Bands wider than MAX_KERNEL_WIDTH: the batch path's kernels (wide
+    variants) against their plain versions; then the gap record through
+    the realign CLI (the parallel engine's windows, counts reset before and
+    read after) and its pairs against the plain versions' on the same card
+    tensors; then one EM iteration on it (the exact engine's exp windows).
+    Each site's widest window launch is checked against its plain version
+    (carries, exp's F halo)."""
+    from cpecan_tpu_torch.align import batch
+    from cpecan_tpu_torch.cli import realign
+    from cpecan_tpu_torch.models.state_machine import state_machine5
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    _wide_batch(card, sites)
+    seqs, cigars = _gap_record(21)
+    fasta, cig = f"{tmp}/gap.fa", f"{tmp}/gap.cigar"
+    _write_fasta(fasta, seqs)
+    _write_cigars(cig, cigars)
+    width = lambda args: args[1].shape[-1]
+    torch.cuda.synchronize()
+    wf.reset_launch_counts()
+    with _capture(("par_fwd", "par_bwd"), width) as kept:
+        t0 = time.perf_counter()
+        out = _realign(fasta, cigars, "cuda", GAP_SPLIT)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = {k: v for k, v in wf.LAUNCHES.items() if v}
+    for k in ("wide_fwd", "wide_bwd"):
+        if not launches.get(k):
+            raise AssertionError(f"{k} not launched by the gap record: {launches}")
+        sites[k]["launches"] = launches[k]
+    _check_cigars(out, cigars)
+    if set(kept) != {"par_fwd", "par_bwd"}:
+        raise AssertionError(f"the gap record did not stream: {launches}")
+    log(f"gap record realign ({len(seqs['gapx'])} x {len(seqs['gapy'])}, "
+        f"an anchor-free {GAP_MIDDLE} bp gap, {' '.join(GAP_SPLIT)}): {dt:.2f} s "
+        f"on {card}; launches {launches}")
+    for site, entry in kept.items():
+        e, *_ = _check_site(site, entry, 5, wf.KERNEL_NZ[5],
+                            "the gap record's widest window", card, reps=3)
+        k = f"wide_{SITES[site][0]}"
+        sites[k]["err"] = max(sites[k]["err"], e)
+
+    p = realign.alignment_parameters(
+        realign.make_parser().parse_args([fasta] + GAP_SPLIT))
+    jobs = _realign_jobs(seqs, cigars, p)
+    sm = state_machine5()
+    card_pairs = batch.batch_posteriors(sm, jobs, p, device="cuda")
+    with _plain_versions():
+        plain_pairs = batch.batch_posteriors(sm, jobs, p, device="cuda")
+    n, flips, worst = _same_pairs(card_pairs[0], plain_pairs[0], p.threshold)
+    if worst > 100:
+        raise AssertionError(f"gap record: posteriors differ by {worst} / 1e7")
+    log(f"  gap record pairs, kernels vs plain versions on the card: {n} "
+        f"pairs agree ({flips} threshold flips within 1e-5), max prob diff "
+        f"{worst} / 1e7")
+
+    torch.cuda.synchronize()
+    wf.reset_launch_counts()
+    with _capture(("seg_exp",), width) as kept:
+        t0 = time.perf_counter()
+        model = _em(fasta, cig, f"{tmp}/gap.hmm", "cuda",
+                    ["--iterations", "1"] + GAP_SPLIT)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = {k: v for k, v in wf.LAUNCHES.items() if v}
+    if not launches.get("wide_exp") or "seg_exp" not in kept:
+        raise AssertionError(f"EM on the gap record launched no wide, streamed "
+                             f"exp: {launches}")
+    sites["wide_exp"]["launches"] = launches["wide_exp"]
+    if not np.isfinite(model.likelihood):
+        raise AssertionError(f"gap record EM likelihood {model.likelihood}")
+    log(f"gap record em, 1 iteration: {dt:.2f} s on {card}; likelihood "
+        f"{model.likelihood}; launches {launches}")
+    e, *_ = _check_site("seg_exp", kept["seg_exp"], 5, wf.KERNEL_NZ[5],
+                        "the gap record's widest exp window", card, reps=3)
+    sites["wide_exp"]["err"] = max(sites["wide_exp"]["err"], e)
+    torch.cuda.empty_cache()
+
+
 def _no_jax_package():
     bad = sorted(m for m in sys.modules if m in ("jax", "cpecan_tpu")
                  or m.startswith(("jax.", "cpecan_tpu.")))
@@ -1592,6 +1876,7 @@ def main() -> int:
     ptxas = phase_build()
     summary = phase_kernels(card)
     phase_bwd_sweep(card, ptxas)
+    phase_exp_sweep(card, ptxas)
 
     seqs, cigars = _records(RECORDS)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1618,18 +1903,20 @@ def main() -> int:
         phase_em_profile(fasta, cig, tmp, card)
         phase_em_card_cpu(tmp, fasta, some)
 
-        sites = {k: {"err": 0.0} for k in LONG_SITES}
+        sites = {k: {"err": 0.0} for k in LONG_SITES + WIDE_SITES}
         phase_long_kernels(card, sites)
         phase_long_pair(card, sites)
         phase_long_realign(card, tmp)
         phase_long_em(card, tmp, seqs, cigars, sites)
+        phase_wide(card, tmp, sites)
     _no_jax_package()
 
     # launches: fwd and bwd from the realign main path, exp from the EM
     # main path (fwd launched there too: em_launches); the long-pair sites
     # from the 500 kb path (parallel), the exact engine on its longest
     # chunk (segmented fwd, bwd) and the EM path with long records
-    # (segmented exp)
+    # (segmented exp); the wide variants from the gap record's realign
+    # (fwd, bwd) and EM (exp) runs
     runs = {"fwd": launches, "bwd": launches, "exp": em_launches}
     for k in ("fwd", "bwd", "exp"):
         sites[k] = {"launches": runs[k][k], **summary[k]}

@@ -34,10 +34,13 @@
 // path runs code without any of the window arguments.
 //
 // Design: one thread block per pair, threads over the W band slots (each
-// thread owns up to 4 slots, so W <= 4096). The diagonal loop runs inside
-// the block; the carries that persist across grid steps in VMEM on the
-// TPU live here in shared memory (F_{k-1}, F_{k-2}; B_{k+1}, B_{k+2},
-// bridgevec_{k+1}) and registers (1/m, 1/mb, em_{k+1}). The neighbour
+// thread owns a few slots: W <= 4096 in the shared-memory variants). The
+// diagonal loop runs inside the block; the carries that persist across
+// grid steps in VMEM on the TPU live here in shared memory (F_{k-1},
+// F_{k-2}; B_{k+1}, B_{k+2}, bridgevec_{k+1}) and registers (1/m, 1/mb,
+// em_{k+1}). Bands wider than 4096 slots, whose carries do not fit in
+// shared memory, run the wide variants (wavefront_fwd_wide,
+// wavefront_back_wide; see there). The neighbour
 // shifts in {-1, 0, +1} are shared-memory reads of slot j +- 1 with zero
 // fill outside [0, W), like the Pallas _shift_l/_shift_r. The row max
 // (every 4th diagonal) and the per-diagonal dots are block reductions
@@ -84,29 +87,34 @@
 // two stages fit, or W > 1920 (4 slots on the ring's 480 compute
 // threads).
 //
-// wavefront_exp (EM's E-step) keeps the earlier backward body
-// (backward_body): the same recursion with the dot taken on the rescaled
-// rows and a barrier per reduction, plus, per cell, the posterior flow
-// into Baum-Welch expected counts. Its mb is wavefront_bwd's bit for bit;
-// its total_raw agrees to within the rounding of the dot's order. Its
-// neighbour rows F_{k-1} and F_{k-2} are read straight from the forward
-// intermediate (the TPU's 2-row halo block is tiling and has no
-// counterpart). The per-transition accumulators (13 or 9) live in
-// registers, summed over the thread's slots; the S x 16 emission
-// accumulators, which the TPU body fills with 16 masked adds per state
-// per cell, are a private column of shared memory per thread indexed by
-// the cell's symbol pair (row-major (S*16, threads), so the threads of a
-// warp hit 32 distinct banks). That column (S*16*4 bytes) bounds the
-// block at 256 threads, each with up to 8 slots (W <= 2048). Wider bands
-// (to W <= 4096, the other kernels' limit) run 512 threads of 8 slots
-// with the columns in a device scratch buffer that the caller passes, one
-// (S*16, 512) region per block: each thread still reads and writes only
-// its own column until the block's final barrier. At the end
-// the block reduces its accumulators in a fixed order and writes its
-// pair's (S, S) and (S, 4, 4) counts; the batch sum is the caller's. No
-// atomics, so the counts are the same from run to run. On top of
-// wavefront_bwd's traffic it reads the two forward emission streams, the
-// symbol streams and F rows k-1 and k-2 (from L2 or device memory).
+// wavefront_exp (EM's E-step) is wavefront_bwd's recursion plus, per
+// cell, the posterior flow into Baum-Welch expected counts, built the same
+// way: every device-memory read of a diagonal at the top of its iteration
+// (the streams, F rows k, k-1 and k-2, the forward emissions, the symbol
+// pair; the row-constant bytes and adj1/adj2 one diagonal ahead), one
+// merged block reduction of (row max, bridge, raw dot) and a second
+// barrier that rotates the carries. Its mb and total_raw are
+// wavefront_bwd's arithmetic, bit for bit where the two launch plans give
+// the same threads and slots. Its ring variant holds one diagonal's efx,
+// efy, efm, em, bv, ex, ey, F row and wx/wy per stage, at least three
+// stages deep: the F rows k-1 and k-2 that the counts read are the next
+// two stages, so they cost no extra bytes (rows 0 and 1 of a window read
+// the F halo below it directly). At 8 slots per thread (W > 1024) a
+// diagonal's operands do not fit in registers: that variant reads the
+// recursion's where it uses them and the counts' after the reduction, so
+// only the raw row is held across it. The per-transition accumulators (13 or
+// 9) live in registers, summed over the thread's slots; the S x 16
+// emission accumulators, which the TPU body fills with 16 masked adds per
+// state per cell, are a private column per thread indexed by the cell's
+// symbol pair (row-major (S*16, threads), so the threads of a warp hit 32
+// distinct banks): in shared memory for W <= 2048 (at most 256 compute
+// threads of 1, 2, 4 or 8 slots, so the columns leave room for the
+// ring), in a device scratch buffer that the caller passes above (at most
+// 512 threads, one (S*16, 512) region per block). At the end the block
+// reduces its accumulators in a fixed order and writes its pair's (S, S)
+// and (S, 4, 4) counts; the batch sum is the caller's. No atomics, so the
+// counts are the same from run to run. On top of wavefront_bwd's traffic
+// it reads the two forward emission streams and the symbol streams.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,11 +125,13 @@ namespace {
 
 constexpr int kMaxSlotsPerThread = 4;
 constexpr int kMaxThreads = 1024;
-constexpr int kExpSlotsPerThread = 8;
-constexpr int kExpMaxThreads = 256;      // emission columns in shared memory
-constexpr int kExpWideThreads = 512;     // columns in the caller's scratch
-constexpr int kExpSharedWidth = kExpSlotsPerThread * kExpMaxThreads;
-constexpr int kMaxStages = 4;          // wavefront_bwd's ring of streams
+// the shared-memory variants take W <= kMaxWidth, the wide ones any W
+constexpr int kMaxWidth = kMaxSlotsPerThread * kMaxThreads;
+constexpr int kWideThreads = 1024;       // wavefront_fwd_wide, the wide bwd
+constexpr int kExpMaxThreads = 256;      // exp: emission columns in shared memory
+constexpr int kExpWideThreads = 512;     // exp: columns in the caller's scratch
+constexpr int kExpSharedWidth = 2048;    // exp's widest band with columns in shared memory
+constexpr int kMaxStages = 4;          // the rings of streams
 constexpr int kRingThreads = 480;      // its compute threads beside the producer warp
 constexpr size_t kSmemPerBlock = 232448;  // Hopper: 227 KB per block
 constexpr size_t kStaticSmem = 1024;      // room for the static shared arrays
@@ -175,8 +185,7 @@ struct Trans {
 // Per-pair transition counts: trans[from, to] += sum(tacc[k]) * T.
 #define CPECAN_TRANS_TERM(c, f, t)                                     \
   {                                                                    \
-    const float v = block_sum(tacc[k], red);                           \
-    __syncthreads();                                                   \
+    const float v = compute_sum(tacc[k], red, nt);                     \
     out[(f) * S + (t)] += v * T[((c) * S + (f)) * S + (t)];            \
     ++k;                                                               \
   }
@@ -209,9 +218,9 @@ template <> struct Model<5> {
     int k = 0;
     CPECAN_NZ5(CPECAN_EXP_TERM)
   }
-  // Every thread of the block calls it; out (S*S) is the caller's.
+  // Every compute thread (nt of them) calls it; out (S*S) is the caller's.
   static __device__ __forceinline__ void trans(float* out, const float* tacc, float* red,
-                                               const float* T);
+                                               const float* T, int nt);
 };
 
 template <> struct Model<3> {
@@ -239,9 +248,9 @@ template <> struct Model<3> {
     int k = 0;
     CPECAN_NZ3(CPECAN_EXP_TERM)
   }
-  // Every thread of the block calls it; out (S*S) is the caller's.
+  // Every compute thread (nt of them) calls it; out (S*S) is the caller's.
   static __device__ __forceinline__ void trans(float* out, const float* tacc, float* red,
-                                               const float* T);
+                                               const float* T, int nt);
 };
 
 // row[j] inside [0, W), zero outside (the Pallas shifts' zero fill).
@@ -249,8 +258,13 @@ __device__ __forceinline__ float nb(const float* row, int j, int W) {
   return (j >= 0 && j < W) ? row[j] : 0.f;
 }
 
-// Block-wide max / sum; blockDim.x is a multiple of 32 and every thread
-// of the block calls it. Every thread returns the same value (the
+// row[j] of a row that may be absent (null: zero).
+__device__ __forceinline__ float nbz(const float* row, int j, int W) {
+  return row ? nb(row, j, W) : 0.f;
+}
+
+// Block-wide max; blockDim.x is a multiple of 32 and every thread of
+// the block calls it. Every thread returns the same value (the
 // per-warp partials are combined in one fixed order). `red` holds one
 // float per warp and must not be reused before the next block barrier.
 __device__ __forceinline__ float block_max(float v, float* red) {
@@ -262,12 +276,22 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return m;
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// The compute threads' own barrier (named barrier 1, n threads): the
+// ring variants' producer warp takes no part in the block reductions.
+__device__ __forceinline__ void sync_compute(int n) {
+  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+}
+
+// Sum over the first nt threads of the block (all of them call it), in
+// a fixed order; every caller returns the same value. Ends with a
+// barrier, so `red` (one float per warp) may be reused at once.
+__device__ __forceinline__ float compute_sum(float v, float* red, int nt) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
+  sync_compute(nt);
   float s = 0.f;
-  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) s += red[k];
+  for (int k = 0; k < (nt >> 5); ++k) s += red[k];
+  sync_compute(nt);
   return s;
 }
 
@@ -395,14 +419,14 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront_fwd(
 }
 
 __device__ __forceinline__ void Model<5>::trans(float* out, const float* tacc, float* red,
-                                                const float* T) {
+                                                const float* T, int nt) {
   constexpr int S = 5;
   int k = 0;
   CPECAN_NZ5(CPECAN_TRANS_TERM)
 }
 
 __device__ __forceinline__ void Model<3>::trans(float* out, const float* tacc, float* red,
-                                                const float* T) {
+                                                const float* T, int nt) {
   constexpr int S = 3;
   int k = 0;
   CPECAN_NZ3(CPECAN_TRANS_TERM)
@@ -443,9 +467,11 @@ struct BwdArgs {
   const int8_t* wy;
   float* trans;
   float* emis;
-  // wavefront_exp at W > kExpSharedWidth: (B, S*16, blockDim.x) emission
-  // columns; null otherwise (the columns live in shared memory)
+  // wavefront_exp at W > kExpSharedWidth: (B, S*16, kExpWideThreads)
+  // emission columns; null otherwise (the columns live in shared memory)
   float* eacc;
+  // the wide variants: (B, 3, S, W), the rows B_{k+1}, B_{k+2}, B_k
+  float* scratch;
   // windows of a long pair (all null on the batch path): exp's F halo
   // (rows k0-2, k0-1), the backward carry in (B_{k1}, B_{k1+1}, 1/mb,
   // em_{k1}, bridgevec_{k1}) and the same carry out of the first row
@@ -462,228 +488,6 @@ struct BwdArgs {
   float* co_bv;
   int k0;  // global diagonal of row 0
 };
-
-// wavefront_exp's body: the backward wavefront of one pair (this
-// block's), high to low, with the expected counts of each diagonal.
-// Shared memory: B_{k+1}, B_{k+2} (S, W) each, bridgevec_{k+1} (W), and
-// the emission accumulators (S * 16, blockDim.x) unless kScratch puts
-// them in p.eacc.
-template <int S, int kSlots, bool kScratch, bool kWindow>
-__device__ __forceinline__ void backward_body(const Trans& tr, const BwdArgs& p, int R, int W,
-                                              float* smem, float (*red)[32]) {
-  float* b1s = smem;              // B_{k+1} (S, W)
-  float* b2s = smem + S * W;      // B_{k+2} (S, W)
-  float* bvn = smem + 2 * S * W;  // bridgevec_{k+1} (W)
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  // (S * 16, nt) emission accumulators; thread tid owns column tid
-  float* eacc = kScratch ? p.eacc + (size_t)b * S * 16 * nt : bvn + W;
-  const float* T = tr.v;
-  constexpr int kNz = Model<S>::kNz;
-
-  // The recursion starts from the carry of the row above a window, or
-  // past the last diagonal from zero carries.
-  constexpr bool carry = kWindow;
-  for (int j = tid; j < S * W; j += nt) {
-    b1s[j] = carry ? p.ci_b1[(size_t)b * S * W + j] : 0.f;
-    b2s[j] = carry ? p.ci_b2[(size_t)b * S * W + j] : 0.f;
-  }
-  for (int j = tid; j < W; j += nt) bvn[j] = carry ? p.ci_bv[(size_t)b * W + j] : 0.f;
-  for (int j = tid; j < S * 16 * nt; j += nt) eacc[j] = 0.f;
-  float tacc[kNz];
-#pragma unroll
-  for (int k = 0; k < kNz; ++k) tacc[k] = 0.f;
-  float emn[kSlots];  // em_{k+1} of the thread's own slots
-#pragma unroll
-  for (int q = 0; q < kSlots; ++q) {
-    const int j = tid + q * nt;
-    emn[q] = (carry && j < W) ? p.ci_em[(size_t)b * W + j] : 0.f;
-  }
-  float invb = carry ? p.ci_invb[b] : 1.f;  // 1/mb_{k+1}
-  __syncthreads();
-
-  for (int ii = R - 1; ii >= 0; --ii) {
-    const size_t row = (size_t)b * R + ii;
-    const bool norm = ((kWindow ? p.k0 : 0) + ii) % kNormEvery == kNormEvery - 1;
-    const int pm0 = p.pm[row * W];  // row-constant bits live in every slot
-    const bool at_end = (pm0 & kPmAtEnd) != 0;
-    const bool bvalid = (pm0 & kPmBridge) != 0;
-    // receive from k+1: x-class at j+1-d1, y-class at j-d1; from k+2:
-    // m-class at j+1-dsum2; bridge vector at j+dmid_{k+1}
-    const bool sabw = p.abw[row] != 0;
-    const int dx = sabw ? 0 : 1;
-    const int dy = sabw ? -1 : 0;
-    const int dm = p.c1[row] != 0 ? -1 : (p.c0[row] != 0 ? 0 : 1);
-    const int db = p.bm1[row] != 0 ? 1 : (p.bm0[row] != 0 ? 0 : -1);
-
-    float raw[kSlots][S];
-    float lmax = 0.f;
-    float lbr = 0.f;
-#pragma unroll
-    for (int q = 0; q < kSlots; ++q) {
-      const int j = tid + q * nt;
-#pragma unroll
-      for (int s = 0; s < S; ++s) raw[q][s] = 0.f;
-      if (j < W) {
-        const size_t o = row * W + j;
-        const float efxj = p.efx[o];
-        const float efyj = p.efy[o];
-        const float efmi = p.efm[o] * invb;
-        float bx[S], bm[S], by[S];
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          bx[s] = nb(b1s + s * W, j + dx, W) * efxj;
-          by[s] = nb(b1s + s * W, j + dy, W) * efyj;
-          bm[s] = nb(b2s + s * W, j + dm, W) * efmi;
-        }
-        Model<S>::bwd(raw[q], bx, bm, by, T);
-        if (at_end) {
-#pragma unroll
-          for (int s = 0; s < S; ++s) raw[q][s] = p.end_row[((size_t)b * S + s) * W + j];
-        }
-        if (norm) {
-#pragma unroll
-          for (int s = 0; s < S; ++s) lmax = fmaxf(lmax, raw[q][s]);
-        }
-        lbr += nb(bvn, j + db, W) * emn[q] * b1s[j];
-      }
-    }
-
-    float r = 1.f;
-    float mbv = 0.f;
-    if (norm) {
-      float m = block_max(lmax, red[0]);
-      if (!(m > 0.f) || at_end) m = 1.f;
-      r = 1.f / m;
-      mbv = logf(m);
-    }
-    const float bridge = block_sum(lbr, red[1]);
-
-    float ldot = 0.f;
-#pragma unroll
-    for (int q = 0; q < kSlots; ++q) {
-      const int j = tid + q * nt;
-      if (j < W) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          raw[q][s] *= r;
-          ldot += p.F[(row * S + s) * W + j] * raw[q][s];
-        }
-      }
-    }
-    // This reduction's barrier also follows every read of the carries
-    // for this diagonal, so they may be rotated in place below.
-    const float dot = block_sum(ldot, red[2]);
-    const float total = dot + bridge * r * (bvalid ? 1.f : 0.f);
-    const bool ok = total > 0.f;
-    const float invt = ok ? 1.f / total : 0.f;
-    if (tid == 0) {
-      p.mb[row] = mbv;
-      p.tot[row] = ok ? logf(total) : 0.f;
-    }
-
-    // forward-side row constants of the expectations: F_{k-1} (lower
-    // neighbour at j-1+a, upper at j+a) and F_{k-2} (middle at j+dmid);
-    // below row 0 a window reads its halo, the batch path zero (adj1 /
-    // adj2 are zero there too)
-    const bool sa = p.a[row] != 0;
-    const int dl = sa ? 0 : -1;
-    const int du = sa ? 1 : 0;
-    const int dmf = p.b1[row] != 0 ? 1 : (p.b0[row] != 0 ? 0 : -1);
-    const float a1 = p.adj1[row];
-    const float a2 = p.adj2[row];
-    const float* halo = (kWindow && p.fhc) ? p.fhc + (size_t)b * 2 * S * W : nullptr;
-    const float* F1 = nullptr;
-    const float* F2 = nullptr;
-    if (ii >= 1) F1 = p.F + (row - 1) * S * W;
-    else if (halo) F1 = halo + S * W;
-    if (ii >= 2) F2 = p.F + (row - 2) * S * W;
-    else if (halo) F2 = halo + ii * S * W;
-
-#pragma unroll
-    for (int q = 0; q < kSlots; ++q) {
-      const int j = tid + q * nt;
-      if (j < W) {
-        const size_t o = row * W + j;
-        const float exa = p.ex[o] * a1;
-        const float eya = p.ey[o] * a1;
-        const float ema = p.em[o] * a2;
-        float lo[S], mid[S], up[S], bw[S], qv[S];
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          lo[s] = F1 ? nb(F1 + s * W, j + dl, W) * exa : 0.f;
-          up[s] = F1 ? nb(F1 + s * W, j + du, W) * eya : 0.f;
-          mid[s] = F2 ? nb(F2 + s * W, j + dmf, W) * ema : 0.f;
-          bw[s] = raw[q][s] * invt;
-          qv[s] = 0.f;
-        }
-        Model<S>::exp(tacc, qv, lo, mid, up, bw, T);
-        const int sx = p.wx[o];
-        const int sy = p.wy[o];
-        if (sx < 4 && sy < 4) {
-          float* col = eacc + (sx * 4 + sy) * nt + tid;
-#pragma unroll
-          for (int s = 0; s < S; ++s) col[s * 16 * nt] += qv[s] * bw[s];
-        }
-        // B_k replaces B_{k+2}; B_{k+1} becomes B_{k+2}, zeroed at k == L
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          b2s[s * W + j] = raw[q][s];
-          if (at_end) b1s[s * W + j] = 0.f;
-        }
-        bvn[j] = p.bv[o];
-        emn[q] = p.em[o];
-      }
-    }
-    invb = at_end ? 1.f : r;
-    __syncthreads();
-    float* tmp = b1s;
-    b1s = b2s;
-    b2s = tmp;
-  }
-
-  // carry out of row 0 (the loop's final barrier precedes)
-  if (kWindow && p.co_b1 != nullptr) {
-    for (int j = tid; j < S * W; j += nt) {
-      p.co_b1[(size_t)b * S * W + j] = b1s[j];
-      p.co_b2[(size_t)b * S * W + j] = b2s[j];
-    }
-    for (int j = tid; j < W; j += nt) p.co_bv[(size_t)b * W + j] = bvn[j];
-#pragma unroll
-    for (int q = 0; q < kSlots; ++q) {
-      const int j = tid + q * nt;
-      if (j < W) p.co_em[(size_t)b * W + j] = emn[q];
-    }
-    if (tid == 0) p.co_invb[b] = invb;
-  }
-
-  // The pair's counts: transitions by block reductions, emissions by one
-  // thread per (state, symbol pair) summing the threads' columns in
-  // order. The loop's final barrier precedes these reads.
-  float out[S * S];
-#pragma unroll
-  for (int k = 0; k < S * S; ++k) out[k] = 0.f;
-  Model<S>::trans(out, tacc, red[0], T);
-  if (tid == 0) {
-    for (int k = 0; k < S * S; ++k) p.trans[(size_t)b * S * S + k] = out[k];
-  }
-  for (int k = tid; k < S * 16; k += nt) {
-    const float* rowp = eacc + k * nt;
-    float s = 0.f;
-    for (int c = 0; c < nt; ++c) s += rowp[c];
-    p.emis[(size_t)b * S * 16 + k] = s;
-  }
-}
-
-template <int S, int kThreads, bool kWindow>
-__global__ void __launch_bounds__(kThreads)
-    wavefront_exp(const Trans tr, const BwdArgs p, int R, int W) {
-  extern __shared__ float smem[];
-  __shared__ float red[3][32];
-  backward_body<S, kExpSlotsPerThread, (kThreads > kExpMaxThreads), kWindow>(tr, p, R, W, smem,
-                                                                           red);
-}
 
 // ------------------------------------------------------------ wavefront_bwd
 //
@@ -765,12 +569,6 @@ struct RowBits {
 
 __device__ __forceinline__ RowBits row_bits(const BwdArgs& p, size_t row) {
   return {p.abw[row], p.c1[row], p.c0[row], p.bm1[row], p.bm0[row]};
-}
-
-// The compute threads' own barrier (named barrier 1, n threads): the
-// ring variant's producer warp takes no part in the block reduction.
-__device__ __forceinline__ void sync_compute(int n) {
-  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
 }
 
 // Backward wavefront and posteriors of one pair (this block's), high to
@@ -1019,6 +817,708 @@ __global__ void __launch_bounds__(kRing ? kRingThreads + 32 : kMaxThreads)
   }
 }
 
+// ------------------------------------------------------------ wavefront_exp
+//
+// Its ring stage holds one diagonal's efx, efy, efm, em, bv, ex, ey (W
+// floats each), F (S, W), wx and wy (W bytes each), each one contiguous
+// segment of its (B, R, ...) tensor.
+
+__host__ __device__ constexpr size_t exp_stage_bytes(int S, int W) {
+  return (7 + (size_t)S) * W * sizeof(float) + 2 * (size_t)W;
+}
+
+// Fill `stage` with diagonal `row` (a row of the (B, R) grid): one thread.
+template <int S>
+__device__ __forceinline__ void exp_fill(char* stage, uint64_t* bar, const BwdArgs& p,
+                                         size_t row, int W) {
+  const uint32_t wb = (uint32_t)W * sizeof(float);
+  float* d = reinterpret_cast<float*>(stage);
+  int8_t* w = reinterpret_cast<int8_t*>(d + (7 + S) * W);
+  ring_expect(bar, (uint32_t)exp_stage_bytes(S, W));
+  ring_copy(d, p.efx + row * W, wb, bar);
+  ring_copy(d + W, p.efy + row * W, wb, bar);
+  ring_copy(d + 2 * W, p.efm + row * W, wb, bar);
+  ring_copy(d + 3 * W, p.em + row * W, wb, bar);
+  ring_copy(d + 4 * W, p.bv + row * W, wb, bar);
+  ring_copy(d + 5 * W, p.ex + row * W, wb, bar);
+  ring_copy(d + 6 * W, p.ey + row * W, wb, bar);
+  ring_copy(d + 7 * W, p.F + row * S * W, S * wb, bar);
+  ring_copy(w, p.wx + row * W, (uint32_t)W, bar);
+  ring_copy(w + W, p.wy + row * W, (uint32_t)W, bar);
+}
+
+// The row constants of one diagonal for wavefront_exp: the backward and
+// forward shift selects, pm's row bits (at_end, bridge) and the scale
+// adjustments of the neighbour F rows.
+struct ExpRow {
+  int8_t abw, c1, c0, bm1, bm0, a, b1, b0, pm0;
+  float adj1, adj2;
+};
+
+__device__ __forceinline__ ExpRow exp_row(const BwdArgs& p, size_t row, int W) {
+  return {p.abw[row], p.c1[row], p.c0[row], p.bm1[row], p.bm0[row], p.a[row],
+          p.b1[row],  p.b0[row], p.pm[row * W], p.adj1[row], p.adj2[row]};
+}
+
+// Backward wavefront of one pair (this block's), high to low, with the
+// expected counts of each diagonal. The first nt threads compute, each
+// owning kSlots band slots j = tid + q * nt; kRing adds one producer warp
+// after them, which fills the ring (D >= 3 stages). Shared memory:
+// B_{k+1}, B_{k+2} (S, W) each, bridgevec_{k+1} (W), the D ring stages,
+// then the (S * 16, nt) emission columns unless p.eacc holds them. Per
+// diagonal: every device-memory read at the top (kRing: the producer
+// issued the streams D diagonals earlier; the row constants come one
+// diagonal earlier into registers), one block reduction of (row max,
+// bridge, F.B dot) with the compute threads' barrier, then the counts
+// and the new carries, and the block barrier that rotates them and frees
+// the diagonal's stage.
+template <int S, int kSlots, bool kRing, bool kWindow>
+__global__ void __launch_bounds__(kRing ? kExpMaxThreads + 32
+                                          : kSlots == 8 ? kExpWideThreads : kExpMaxThreads)
+    wavefront_exp(const Trans tr, const BwdArgs p, int R, int W, int D) {
+  extern __shared__ __align__(16) float exp_smem[];  // 16-byte aligned for the copies
+  __shared__ float red[3][32];                       // per warp: row max, bridge, dot
+  __shared__ uint64_t bars[kMaxStages];
+  float* smem = exp_smem;
+  float* b1s = smem;              // B_{k+1} (S, W)
+  float* b2s = smem + S * W;      // B_{k+2} (S, W)
+  float* bvn = smem + 2 * S * W;  // bridgevec_{k+1} (W)
+  char* ring = reinterpret_cast<char*>(smem + (2 * S + 1) * W);
+  const size_t sbytes = exp_stage_bytes(S, W);
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x - (kRing ? 32 : 0);  // compute threads
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nt >> 5;
+  const float* T = tr.v;
+  constexpr int kNz = Model<S>::kNz;
+  // 8 slots: a diagonal's loads do not fit in registers. The recursion's
+  // operands are read where they are used, the counts' after the reduction.
+  constexpr bool kLate = kSlots > 4;
+  // (S * 16, nt) emission accumulators; thread tid owns column tid
+  float* eacc = p.eacc ? p.eacc + (size_t)b * S * 16 * nt
+                       : reinterpret_cast<float*>(ring + (kRing ? D * sbytes : 0));
+
+  if (kRing && tid >= nt) {
+    // The producer warp: stage s starts with diagonal R-1-s; once the
+    // block barrier that ends diagonal ii has freed its stage, one thread
+    // refills it with diagonal ii-D. It meets the compute threads only at
+    // the block barriers (one before the loop, one per diagonal).
+    if (tid == nt) {
+      for (int s = 0; s < D; ++s) ring_init(&bars[s]);
+      for (int s = 0; s < D && s < R; ++s)
+        exp_fill<S>(ring + s * sbytes, &bars[s], p, (size_t)b * R + R - 1 - s, W);
+    }
+    __syncthreads();
+    int st = 0;
+    for (int ii = R - 1; ii >= 0; --ii) {
+      __syncthreads();
+      if (tid == nt && ii >= D)
+        exp_fill<S>(ring + st * sbytes, &bars[st], p, (size_t)b * R + ii - D, W);
+      if (++st == D) st = 0;
+    }
+    return;
+  }
+
+  // The recursion starts from the carry of the row above a window, or
+  // past the last diagonal from zero carries.
+  constexpr bool carry = kWindow;
+  for (int j = tid; j < S * W; j += nt) {
+    b1s[j] = carry ? p.ci_b1[(size_t)b * S * W + j] : 0.f;
+    b2s[j] = carry ? p.ci_b2[(size_t)b * S * W + j] : 0.f;
+  }
+  for (int j = tid; j < W; j += nt) bvn[j] = carry ? p.ci_bv[(size_t)b * W + j] : 0.f;
+  for (int j = tid; j < S * 16 * nt; j += nt) eacc[j] = 0.f;
+  float tacc[kNz];
+#pragma unroll
+  for (int k = 0; k < kNz; ++k) tacc[k] = 0.f;
+  float emn[kSlots];  // em_{k+1} of the thread's own slots
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const int j = tid + q * nt;
+    emn[q] = (carry && j < W) ? p.ci_em[(size_t)b * W + j] : 0.f;
+  }
+  float invb = carry ? p.ci_invb[b] : 1.f;  // 1/mb_{k+1}
+  // F rows k0-2 and k0-1 below a window (the neighbours of its rows 0 and
+  // 1); the batch path has none (adj1 / adj2 are zero there)
+  const float* halo = (kWindow && p.fhc) ? p.fhc + (size_t)b * 2 * S * W : nullptr;
+  ExpRow next = exp_row(p, (size_t)b * R + R - 1, W);
+  __syncthreads();
+
+  int st = 0;           // the ring stage of diagonal ii
+  uint32_t parity = 0;  // the phase of that stage's barrier
+  for (int ii = R - 1; ii >= 0; --ii) {
+    const size_t row = (size_t)b * R + ii;
+    const bool norm = ((kWindow ? p.k0 : 0) + ii) % kNormEvery == kNormEvery - 1;
+
+    // Every device-memory read of this diagonal, before its first barrier.
+    const ExpRow rb = next;
+    if (ii >= 1) next = exp_row(p, row - 1, W);
+    const float *gx, *gy, *gm, *ge, *gb, *gex, *gey, *gF;
+    const float* gF1 = nullptr;  // F_{k-1}
+    const float* gF2 = nullptr;  // F_{k-2}
+    const int8_t *gwx, *gwy;
+    if constexpr (kRing) {
+      // diagonals ii-1 and ii-2 sit in the next two stages (D >= 3)
+      const int st1 = st + 1 == D ? 0 : st + 1;
+      const int st2 = st1 + 1 == D ? 0 : st1 + 1;
+      const uint32_t par1 = st1 == 0 ? parity ^ 1u : parity;
+      const uint32_t par2 = st2 == 0 ? par1 ^ 1u : par1;
+      ring_wait(&bars[st], parity);
+      gx = reinterpret_cast<const float*>(ring + st * sbytes);
+      if (ii >= 1) {
+        ring_wait(&bars[st1], par1);
+        gF1 = reinterpret_cast<const float*>(ring + st1 * sbytes) + 7 * W;
+      }
+      if (ii >= 2) {
+        ring_wait(&bars[st2], par2);
+        gF2 = reinterpret_cast<const float*>(ring + st2 * sbytes) + 7 * W;
+      }
+      gy = gx + W, gm = gx + 2 * W, ge = gx + 3 * W, gb = gx + 4 * W;
+      gex = gx + 5 * W, gey = gx + 6 * W, gF = gx + 7 * W;
+      gwx = reinterpret_cast<const int8_t*>(gx + (7 + S) * W);
+      gwy = gwx + W;
+    } else {
+      gx = p.efx + row * W, gy = p.efy + row * W, gm = p.efm + row * W;
+      ge = p.em + row * W, gb = p.bv + row * W, gex = p.ex + row * W;
+      gey = p.ey + row * W, gF = p.F + row * S * W;
+      gwx = p.wx + row * W, gwy = p.wy + row * W;
+      if (ii >= 1) gF1 = p.F + (row - 1) * S * W;
+      if (ii >= 2) gF2 = p.F + (row - 2) * S * W;
+    }
+    if (ii < 2 && halo) {
+      if (ii == 0) gF1 = halo + S * W;
+      gF2 = halo + ii * S * W;
+    }
+
+    const bool at_end = (rb.pm0 & kPmAtEnd) != 0;
+    const bool bvalid = (rb.pm0 & kPmBridge) != 0;
+    // receive from k+1: x-class at j+1-d1, y-class at j-d1; from k+2:
+    // m-class at j+1-dsum2; bridge vector at j+dmid_{k+1}
+    const int dx = rb.abw != 0 ? 0 : 1;
+    const int dy = rb.abw != 0 ? -1 : 0;
+    const int dm = rb.c1 != 0 ? -1 : (rb.c0 != 0 ? 0 : 1);
+    const int db = rb.bm1 != 0 ? 1 : (rb.bm0 != 0 ? 0 : -1);
+    // the counts' forward neighbours: F_{k-1} lower at j-1+a, upper at
+    // j+a; F_{k-2} middle at j+dmid
+    const int dl = rb.a != 0 ? 0 : -1;
+    const int du = rb.a != 0 ? 1 : 0;
+    const int dmf = rb.b1 != 0 ? 1 : (rb.b0 != 0 ? 0 : -1);
+
+    // the cell's symbol pair 4 * x + y, or -1 (N, sentinel)
+    auto symbols = [&](int j) {
+      const int sx = gwx[j], sy = gwy[j];
+      return (sx < 4 && sy < 4) ? sx * 4 + sy : -1;
+    };
+    float vx[kSlots], vy[kSlots], vm[kSlots], ve[kSlots], vb[kSlots], vex[kSlots], vey[kSlots];
+    float vF[kSlots][S], lo[kSlots][S], up[kSlots][S], mid[kSlots][S];
+    int vw[kSlots];
+    if constexpr (!kLate) {
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) {
+        const int j = tid + q * nt;
+        const bool in = j < W;
+        vx[q] = in ? gx[j] : 0.f;
+        vy[q] = in ? gy[j] : 0.f;
+        vm[q] = in ? gm[j] : 0.f;
+        ve[q] = in ? ge[j] : 0.f;
+        vb[q] = in ? gb[j] : 0.f;
+        vex[q] = in ? gex[j] : 0.f;
+        vey[q] = in ? gey[j] : 0.f;
+        vw[q] = in ? symbols(j) : -1;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          vF[q][s] = in ? gF[s * W + j] : 0.f;
+          lo[q][s] = (in && gF1) ? nb(gF1 + s * W, j + dl, W) : 0.f;
+          up[q][s] = (in && gF1) ? nb(gF1 + s * W, j + du, W) : 0.f;
+          mid[q][s] = (in && gF2) ? nb(gF2 + s * W, j + dmf, W) : 0.f;
+        }
+      }
+    }
+
+    // raw B_k, and this thread's share of the row max, the bridge and the
+    // dot F_k . raw (the rescale r applies to the dot after the reduction)
+    float raw[kSlots][S];
+    float lmax = 0.f;
+    float lbr = 0.f;
+    float ldot = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+#pragma unroll
+      for (int s = 0; s < S; ++s) raw[q][s] = 0.f;
+      if (j < W) {
+        const float efmi = (kLate ? gm[j] : vm[q]) * invb;
+        const float fx = kLate ? gx[j] : vx[q];
+        const float fy = kLate ? gy[j] : vy[q];
+        float bx[S], bm[S], by[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          bx[s] = nb(b1s + s * W, j + dx, W) * fx;
+          by[s] = nb(b1s + s * W, j + dy, W) * fy;
+          bm[s] = nb(b2s + s * W, j + dm, W) * efmi;
+        }
+        Model<S>::bwd(raw[q], bx, bm, by, T);
+        if (at_end) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) raw[q][s] = p.end_row[((size_t)b * S + s) * W + j];
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (norm) lmax = fmaxf(lmax, raw[q][s]);
+          ldot += (kLate ? gF[s * W + j] : vF[q][s]) * raw[q][s];
+        }
+        lbr += nb(bvn, j + db, W) * emn[q] * b1s[j];
+      }
+    }
+
+    // One block reduction of (row max, bridge, dot), as wavefront_bwd's.
+    // Its barrier also follows every read of the carries for this
+    // diagonal, so they may be rotated in place below.
+    for (int o = 16; o > 0; o >>= 1) {
+      if (norm) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      lbr += __shfl_xor_sync(0xffffffffu, lbr, o);
+      ldot += __shfl_xor_sync(0xffffffffu, ldot, o);
+    }
+    if (lane == 0) {
+      red[0][warp] = lmax;
+      red[1][warp] = lbr;
+      red[2][warp] = ldot;
+    }
+    sync_compute(nt);
+    float r = 1.f;
+    float mbv = 0.f;
+    if (norm) {
+      float m = red[0][0];
+      for (int k = 1; k < nw; ++k) m = fmaxf(m, red[0][k]);
+      if (!(m > 0.f) || at_end) m = 1.f;
+      r = 1.f / m;
+      mbv = logf(m);
+    }
+    float bridge = 0.f, dot = 0.f;
+    for (int k = 0; k < nw; ++k) {
+      bridge += red[1][k];
+      dot += red[2][k];
+    }
+    const float total = r * (dot + (bvalid ? bridge : 0.f));
+    const bool ok = total > 0.f;
+    const float invt = ok ? 1.f / total : 0.f;
+    if (tid == 0) {
+      p.mb[row] = mbv;
+      p.tot[row] = ok ? logf(total) : 0.f;
+    }
+
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      if (j < W) {
+        const float emj = kLate ? ge[j] : ve[q];
+        const float exa = (kLate ? gex[j] : vex[q]) * rb.adj1;
+        const float eya = (kLate ? gey[j] : vey[q]) * rb.adj1;
+        const float ema = emj * rb.adj2;
+        float bk[S], l[S], m[S], u[S], bw[S], qv[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          bk[s] = raw[q][s] * r;  // B_k, exactly the rescaled row mb records
+          l[s] = (kLate ? nbz(gF1 ? gF1 + s * W : nullptr, j + dl, W) : lo[q][s]) * exa;
+          u[s] = (kLate ? nbz(gF1 ? gF1 + s * W : nullptr, j + du, W) : up[q][s]) * eya;
+          m[s] = (kLate ? nbz(gF2 ? gF2 + s * W : nullptr, j + dmf, W) : mid[q][s]) * ema;
+          bw[s] = bk[s] * invt;
+          qv[s] = 0.f;
+        }
+        Model<S>::exp(tacc, qv, l, m, u, bw, T);
+        const int w = kLate ? symbols(j) : vw[q];
+        if (w >= 0) {
+          float* col = eacc + w * nt + tid;
+#pragma unroll
+          for (int s = 0; s < S; ++s) col[s * 16 * nt] += qv[s] * bw[s];
+        }
+        // B_k replaces B_{k+2}; B_{k+1} becomes B_{k+2}, zeroed at k == L
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          b2s[s * W + j] = bk[s];
+          if (at_end) b1s[s * W + j] = 0.f;
+        }
+        bvn[j] = kLate ? gb[j] : vb[q];
+        emn[q] = emj;
+      }
+    }
+    invb = at_end ? 1.f : r;
+    __syncthreads();
+    float* tmp = b1s;
+    b1s = b2s;
+    b2s = tmp;
+    if constexpr (kRing) {
+      if (++st == D) {
+        st = 0;
+        parity ^= 1u;
+      }
+    }
+  }
+
+  // carry out of row 0 (the loop's final barrier precedes)
+  if (kWindow && p.co_b1 != nullptr) {
+    for (int j = tid; j < S * W; j += nt) {
+      p.co_b1[(size_t)b * S * W + j] = b1s[j];
+      p.co_b2[(size_t)b * S * W + j] = b2s[j];
+    }
+    for (int j = tid; j < W; j += nt) p.co_bv[(size_t)b * W + j] = bvn[j];
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      if (j < W) p.co_em[(size_t)b * W + j] = emn[q];
+    }
+    if (tid == 0) p.co_invb[b] = invb;
+  }
+
+  // The pair's counts: transitions by block reductions, emissions by one
+  // thread per (state, symbol pair) summing the threads' columns in
+  // order. The loop's final barrier precedes these reads.
+  float out[S * S];
+#pragma unroll
+  for (int k = 0; k < S * S; ++k) out[k] = 0.f;
+  Model<S>::trans(out, tacc, red[0], T, nt);
+  if (tid == 0) {
+    for (int k = 0; k < S * S; ++k) p.trans[(size_t)b * S * S + k] = out[k];
+  }
+  for (int k = tid; k < S * 16; k += nt) {
+    const float* rowp = eacc + k * nt;
+    float s = 0.f;
+    for (int c = 0; c < nt; ++c) s += rowp[c];
+    p.emis[(size_t)b * S * 16 + k] = s;
+  }
+}
+
+// ------------------------------------------------------------ wide bands
+//
+// Bands wider than kMaxWidth: their carries (2 S W floats and more) do not
+// fit in shared memory beside anything else. The wide variants keep the
+// block per pair and the diagonal loop, and move the carries to device
+// memory, where they stay in L2 (a few hundred KB per block):
+//   - wavefront_fwd_wide reads F_{k-1} and F_{k-2} back from its own F
+//     output (a window's first two rows from the carry in);
+//   - wavefront_back_wide (bwd, and exp with kExp) rotates B_{k+1},
+//     B_{k+2} and the new row B_k through three (S, W) rows of a scratch
+//     region per block that the caller passes, and reads bridgevec_{k+1}
+//     and em_{k+1} from the streams of row k+1 (the window's top row from
+//     the carry in).
+// Threads loop over their slots at run time (j = tid, tid + nt, ...; no
+// register array sized by W). A diagonal writes its raw row, the block
+// reduction (row max; bwd and exp also bridge and dot) follows, then each
+// thread rescales its own slots in place, and a block barrier ends the
+// diagonal. The arithmetic is that of the shared-memory variants: the
+// same rescale schedule, mf / mb exactly the applied scale, nb()'s zero
+// fill. A simple kernel that is right: its speed is not worked on.
+
+template <int S, bool kWindow>
+__global__ void __launch_bounds__(kWideThreads) wavefront_fwd_wide(
+    const Trans tr, const float* __restrict__ ex, const float* __restrict__ ey,
+    const float* __restrict__ em, const int8_t* __restrict__ a, const int8_t* __restrict__ b1,
+    const int8_t* __restrict__ b0, const float* __restrict__ F0, const float* __restrict__ ci1,
+    const float* __restrict__ ci2, const float* __restrict__ cim, float* __restrict__ F,
+    float* __restrict__ bv, float* __restrict__ mf, float* __restrict__ co1,
+    float* __restrict__ co2, float* __restrict__ com, int R, int W, int k0) {
+  __shared__ float red[32];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const float* T = tr.v;
+  const size_t SW = (size_t)S * W;
+  float* Fb = F + (size_t)b * R * SW;  // this pair's F rows
+
+  float invm = 1.f;  // 1/m_{k-1}
+  if constexpr (kWindow) {
+    invm = cim[b];
+  } else {
+    // Diagonal 0 is the start row F0; F_{-1} is zero.
+    for (int j = tid; j < W; j += nt) {
+      for (int s = 0; s < S; ++s) Fb[s * W + j] = F0[((size_t)b * S + s) * W + j];
+      bv[(size_t)b * R * W + j] = 0.f;
+    }
+    if (tid == 0) mf[(size_t)b * R] = 0.f;
+  }
+  __syncthreads();
+
+  for (int i = kWindow ? 0 : 1; i < R; ++i) {
+    const size_t row = (size_t)b * R + i;
+    const bool norm = ((kWindow ? k0 : 0) + i) % kNormEvery == kNormEvery - 1;
+    const bool sa = a[row] != 0;
+    const int dl = sa ? 0 : -1;
+    const int du = sa ? 1 : 0;
+    const int dm = b1[row] != 0 ? 1 : (b0[row] != 0 ? 0 : -1);
+    // F_{k-1}, F_{k-2}: this pair's rows, below a window its carry in,
+    // below the batch path's row 0 zero
+    const float* f1 = i >= 1 ? Fb + (i - 1) * SW : ci1 + b * SW;
+    const float* f2 = i >= 2 ? Fb + (i - 2) * SW
+                      : kWindow ? (i == 1 ? ci1 : ci2) + b * SW : nullptr;
+    float* out = Fb + i * SW;
+
+    float lmax = 0.f;
+    for (int j = tid; j < W; j += nt) {
+      const size_t o = row * W + j;
+      const float exj = ex[o];
+      const float eyj = ey[o];
+      const float emi = em[o] * invm;
+      float lo[S], mid[S], up[S], own2[S], cur[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        lo[s] = nb(f1 + s * W, j + dl, W) * exj;
+        up[s] = nb(f1 + s * W, j + du, W) * eyj;
+        mid[s] = nbz(f2 ? f2 + s * W : nullptr, j + dm, W) * emi;
+        own2[s] = f2 ? f2[s * W + j] : 0.f;
+        cur[s] = 0.f;
+      }
+      Model<S>::fwd(cur, lo, mid, up, T);
+      // bridgevec[k] = (sum_f F_{k-2}[f] * t_m[f, match]) / m_{k-1}
+      bv[o] = Model<S>::bridge(own2, T) * invm;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        out[s * W + j] = cur[s];
+        if (norm) lmax = fmaxf(lmax, cur[s]);
+      }
+    }
+
+    float r = 1.f;
+    if (norm) {
+      float m = block_max(lmax, red);
+      m = m > 0.f ? m : 1.f;
+      r = 1.f / m;
+      if (tid == 0) mf[row] = logf(m);
+      for (int j = tid; j < W; j += nt) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) out[s * W + j] *= r;
+      }
+    } else if (tid == 0) {
+      mf[row] = 0.f;
+    }
+    __syncthreads();  // row i is final; the next diagonal reads it
+    invm = r;
+  }
+
+  // carry out of the last row (the loop's final barrier precedes)
+  if (kWindow && co1 != nullptr) {
+    const float* f1 = Fb + (R - 1) * SW;
+    const float* f2 = R >= 2 ? Fb + (R - 2) * SW : ci1 + b * SW;
+    for (int j = tid; j < S * W; j += nt) {
+      co1[b * SW + j] = f1[j];
+      co2[b * SW + j] = f2[j];
+    }
+    if (tid == 0) com[b] = invm;
+  }
+}
+
+// The backward wavefront of one pair for bands of any width: bwd's
+// posteriors, or (kExp) exp's expected counts with the emission columns
+// in p.eacc (S * 16, nt) per block.
+template <int S, bool kExp, bool kWindow>
+__global__ void __launch_bounds__(kExp ? kExpWideThreads : kWideThreads)
+    wavefront_back_wide(const Trans tr, const BwdArgs p, int R, int W) {
+  __shared__ float red[3][32];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nt >> 5;
+  const float* T = tr.v;
+  const size_t SW = (size_t)S * W;
+  const bool all = p.post_x != nullptr;
+  // B_{k+1}, B_{k+2} and the new row B_k rotate through three rows
+  float* buf = p.scratch + (size_t)b * 3 * SW;
+  int i1 = 0, i2 = 1, i0 = 2;
+  constexpr int kNz = kExp ? Model<S>::kNz : 1;
+  float* eacc = kExp ? p.eacc + (size_t)b * S * 16 * nt : nullptr;
+
+  constexpr bool carry = kWindow;
+  for (size_t j = tid; j < SW; j += nt) {
+    buf[j] = carry ? p.ci_b1[b * SW + j] : 0.f;
+    buf[SW + j] = carry ? p.ci_b2[b * SW + j] : 0.f;
+  }
+  if constexpr (kExp) {
+    for (int j = tid; j < S * 16 * nt; j += nt) eacc[j] = 0.f;
+  }
+  float tacc[kNz];
+#pragma unroll
+  for (int k = 0; k < kNz; ++k) tacc[k] = 0.f;
+  float invb = carry ? p.ci_invb[b] : 1.f;  // 1/mb_{k+1}
+  const float* halo = (kExp && kWindow && p.fhc) ? p.fhc + (size_t)b * 2 * SW : nullptr;
+  __syncthreads();
+
+  for (int ii = R - 1; ii >= 0; --ii) {
+    const size_t row = (size_t)b * R + ii;
+    const bool norm = ((kWindow ? p.k0 : 0) + ii) % kNormEvery == kNormEvery - 1;
+    const int pm0 = p.pm[row * W];  // row-constant bits live in every slot
+    const bool at_end = (pm0 & kPmAtEnd) != 0;
+    const bool bvalid = (pm0 & kPmBridge) != 0;
+    const bool sabw = p.abw[row] != 0;
+    const int dx = sabw ? 0 : 1;
+    const int dy = sabw ? -1 : 0;
+    const int dm = p.c1[row] != 0 ? -1 : (p.c0[row] != 0 ? 0 : 1);
+    const int db = p.bm1[row] != 0 ? 1 : (p.bm0[row] != 0 ? 0 : -1);
+    float* b1 = buf + i1 * SW;
+    float* b2 = buf + i2 * SW;
+    float* bn = buf + i0 * SW;
+    // bridgevec_{k+1} and em_{k+1}: row k+1's streams, or the carry in
+    // (zero past the batch path's last diagonal)
+    const float* bvr = ii + 1 < R ? p.bv + (row + 1) * W : carry ? p.ci_bv + (size_t)b * W : nullptr;
+    const float* emr = ii + 1 < R ? p.em + (row + 1) * W : carry ? p.ci_em + (size_t)b * W : nullptr;
+
+    float lmax = 0.f, lbr = 0.f, ldot = 0.f;
+    for (int j = tid; j < W; j += nt) {
+      const size_t o = row * W + j;
+      const float efmi = p.efm[o] * invb;
+      float bx[S], bm[S], by[S], raw[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        bx[s] = nb(b1 + s * W, j + dx, W) * p.efx[o];
+        by[s] = nb(b1 + s * W, j + dy, W) * p.efy[o];
+        bm[s] = nb(b2 + s * W, j + dm, W) * efmi;
+        raw[s] = 0.f;
+      }
+      Model<S>::bwd(raw, bx, bm, by, T);
+      if (at_end) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) raw[s] = p.end_row[((size_t)b * S + s) * W + j];
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (norm) lmax = fmaxf(lmax, raw[s]);
+        ldot += p.F[(row * S + s) * W + j] * raw[s];
+        bn[s * W + j] = raw[s];
+      }
+      lbr += nbz(bvr, j + db, W) * (emr ? emr[j] : 0.f) * b1[j];
+    }
+
+    for (int o = 16; o > 0; o >>= 1) {
+      if (norm) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      lbr += __shfl_xor_sync(0xffffffffu, lbr, o);
+      ldot += __shfl_xor_sync(0xffffffffu, ldot, o);
+    }
+    if (lane == 0) {
+      red[0][warp] = lmax;
+      red[1][warp] = lbr;
+      red[2][warp] = ldot;
+    }
+    __syncthreads();  // also: every read of b1 / b2 for this diagonal is done
+    float r = 1.f;
+    float mbv = 0.f;
+    if (norm) {
+      float m = red[0][0];
+      for (int k = 1; k < nw; ++k) m = fmaxf(m, red[0][k]);
+      if (!(m > 0.f) || at_end) m = 1.f;
+      r = 1.f / m;
+      mbv = logf(m);
+    }
+    float bridge = 0.f, dot = 0.f;
+    for (int k = 0; k < nw; ++k) {
+      bridge += red[1][k];
+      dot += red[2][k];
+    }
+    const float total = r * (dot + (bvalid ? bridge : 0.f));
+    const bool ok = total > 0.f;
+    const float invt = ok ? 1.f / total : 0.f;
+    if (tid == 0) {
+      p.mb[row] = mbv;
+      p.tot[row] = ok ? logf(total) : 0.f;
+    }
+
+    // exp: the forward neighbours of the counts (see wavefront_exp)
+    const int dl = kExp && p.a[row] == 0 ? -1 : 0;
+    const int du = dl + 1;
+    const int dmf = !kExp ? 0 : p.b1[row] != 0 ? 1 : (p.b0[row] != 0 ? 0 : -1);
+    const float a1 = kExp ? p.adj1[row] : 0.f;
+    const float a2 = kExp ? p.adj2[row] : 0.f;
+    const float* F1 = nullptr;
+    const float* F2 = nullptr;
+    if constexpr (kExp) {
+      if (ii >= 1) F1 = p.F + (row - 1) * SW;
+      else if (halo) F1 = halo + SW;
+      if (ii >= 2) F2 = p.F + (row - 2) * SW;
+      else if (halo) F2 = halo + ii * SW;
+    }
+    for (int j = tid; j < W; j += nt) {
+      const size_t o = row * W + j;
+      float bk[S];  // B_k, exactly the rescaled row mb records
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        bk[s] = bn[s * W + j] * r;
+        bn[s * W + j] = bk[s];
+      }
+      if constexpr (kExp) {
+        const float exa = p.ex[o] * a1;
+        const float eya = p.ey[o] * a1;
+        const float ema = p.em[o] * a2;
+        float lo[S], mid[S], up[S], bw[S], qv[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          lo[s] = nbz(F1 ? F1 + s * W : nullptr, j + dl, W) * exa;
+          up[s] = nbz(F1 ? F1 + s * W : nullptr, j + du, W) * eya;
+          mid[s] = nbz(F2 ? F2 + s * W : nullptr, j + dmf, W) * ema;
+          bw[s] = bk[s] * invt;
+          qv[s] = 0.f;
+        }
+        Model<S>::exp(tacc, qv, lo, mid, up, bw, T);
+        const int sx = p.wx[o];
+        const int sy = p.wy[o];
+        if (sx < 4 && sy < 4) {
+          float* col = eacc + (sx * 4 + sy) * nt + tid;
+#pragma unroll
+          for (int s = 0; s < S; ++s) col[s * 16 * nt] += qv[s] * bw[s];
+        }
+      } else {
+        const int pb = p.pm[o];
+        const float* Fo = p.F + row * SW + j;
+        p.post_m[o] = (pb & kPmMatch) ? Fo[0] * bk[0] * invt : 0.f;
+        if (all) {
+          p.post_x[o] = (pb & kPmGapX) ? Fo[W] * bk[1] * invt : 0.f;
+          p.post_y[o] = (pb & kPmGapY) ? Fo[2 * W] * bk[2] * invt : 0.f;
+        }
+      }
+      // B_{k+1} becomes B_{k+2}, zeroed at k == L
+      if (at_end) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) b1[s * W + j] = 0.f;
+      }
+    }
+    invb = at_end ? 1.f : r;
+    __syncthreads();
+    const int t = i2;
+    i2 = i1;
+    i1 = i0;
+    i0 = t;
+  }
+
+  // carry out of row 0 (the loop's final barrier precedes)
+  if (kWindow && p.co_b1 != nullptr) {
+    for (size_t j = tid; j < SW; j += nt) {
+      p.co_b1[b * SW + j] = buf[i1 * SW + j];
+      p.co_b2[b * SW + j] = buf[i2 * SW + j];
+    }
+    for (int j = tid; j < W; j += nt) {
+      p.co_bv[(size_t)b * W + j] = p.bv[(size_t)b * R * W + j];
+      p.co_em[(size_t)b * W + j] = p.em[(size_t)b * R * W + j];
+    }
+    if (tid == 0) p.co_invb[b] = invb;
+  }
+
+  if constexpr (kExp) {
+    float out[S * S];
+#pragma unroll
+    for (int k = 0; k < S * S; ++k) out[k] = 0.f;
+    Model<S>::trans(out, tacc, red[0], T, nt);
+    if (tid == 0) {
+      for (int k = 0; k < S * S; ++k) p.trans[(size_t)b * S * S + k] = out[k];
+    }
+    for (int k = tid; k < S * 16; k += nt) {
+      const float* rowp = eacc + k * nt;
+      float s = 0.f;
+      for (int c = 0; c < nt; ++c) s += rowp[c];
+      p.emis[(size_t)b * S * 16 + k] = s;
+    }
+  }
+}
+
 int threads_for(int W) {
   const int nt = (W + 31) / 32 * 32;
   return nt < kMaxThreads ? nt : kMaxThreads;
@@ -1104,30 +1604,84 @@ int launch_bwd(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaS
   return (int)cudaGetLastError();
 }
 
-// W <= kExpSharedWidth: up to 256 threads, emission columns in shared
-// memory; wider: 512 threads, columns in p.eacc.
+// wavefront_exp's launch at (S, W), as wavefront_bwd's: the emission
+// columns in shared memory (scratch false; at most kExpMaxThreads compute
+// threads) or in p.eacc (at most kExpWideThreads); 1, 2, 4 or 8 slots,
+// the fewest that cover W; a ring of D >= 3 stages (its F rows k-1 and k-2
+// are the next two stages) where that many fit beside the carries and the
+// columns, W % 16 == 0, the streams sit on the 16-byte grid and the slots
+// are at most 4; the direct-load variant otherwise.
+BwdPlan exp_plan(int S, int W, bool aligned, bool scratch) {
+  const size_t carries = (2 * (size_t)S + 1) * W * sizeof(float);
+  const int cap = scratch ? kExpWideThreads : kExpMaxThreads;
+  const int slots = W <= cap ? 1 : W <= 2 * cap ? 2 : W <= 4 * cap ? 4 : 8;
+  const int compute = ((W + slots - 1) / slots + 31) / 32 * 32;
+  const size_t cols = scratch ? 0 : (size_t)S * 16 * compute * sizeof(float);
+  const size_t used = kStaticSmem + carries + cols;
+  const size_t fit = used < kSmemPerBlock ? (kSmemPerBlock - used) / exp_stage_bytes(S, W) : 0;
+  int depth = (int)std::min<size_t>(kMaxStages, fit);
+  if (!aligned || W % 16 != 0 || depth < 3 || slots > 4) depth = 0;
+  return {compute + (depth ? 32 : 0), slots, depth,
+          carries + depth * exp_stage_bytes(S, W) + cols};
+}
+
+// The streams exp's ring copies start on 16-byte boundaries.
+bool exp_aligned(const BwdArgs& p) {
+  const void* ptrs[] = {p.efx, p.efy, p.efm, p.em, p.bv, p.ex, p.ey, p.F, p.wx, p.wy};
+  for (const void* q : ptrs)
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return false;
+  return true;
+}
+
+template <int S, int kSlots, bool kRing>
+BwdKernel exp_kernel(bool window) {
+  return window ? wavefront_exp<S, kSlots, kRing, true> : wavefront_exp<S, kSlots, kRing, false>;
+}
+
 template <int S>
 int launch_exp(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaStream_t stream) {
-  const bool wide = W > kExpSharedWidth;
-  if (wide != (p.eacc != nullptr)) return (int)cudaErrorInvalidValue;
-  const int nt = wide ? kExpWideThreads : std::min((W + 31) / 32 * 32, kExpMaxThreads);
-  const size_t smem =
-      ((2 * (size_t)S + 1) * W + (wide ? 0 : (size_t)S * 16 * nt)) * sizeof(float);
+  const BwdPlan pl = exp_plan(S, W, exp_aligned(p), p.eacc != nullptr);
   const bool window = p.ci_b1 != nullptr;
-  auto kernel = wide ? (window ? wavefront_exp<S, kExpWideThreads, true>
-                               : wavefront_exp<S, kExpWideThreads, false>)
-                     : (window ? wavefront_exp<S, kExpMaxThreads, true>
-                               : wavefront_exp<S, kExpMaxThreads, false>);
+  BwdKernel kernel = pl.depth > 0 ? (pl.slots == 1   ? exp_kernel<S, 1, true>(window)
+                                     : pl.slots == 2 ? exp_kernel<S, 2, true>(window)
+                                                     : exp_kernel<S, 4, true>(window))
+                                  : (pl.slots == 1   ? exp_kernel<S, 1, false>(window)
+                                     : pl.slots == 2 ? exp_kernel<S, 2, false>(window)
+                                     : pl.slots == 4 ? exp_kernel<S, 4, false>(window)
+                                                     : exp_kernel<S, 8, false>(window));
   cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<B, nt, smem, stream>>>(load_trans(S, t_host), p, R, W);
+  kernel<<<B, pl.threads, pl.smem, stream>>>(load_trans(S, t_host), p, R, W, pl.depth);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int S, int B, int R, int W) {
-  return (S != 3 && S != 5) || B < 0 || R < 1 || W < 1 ||
-         W > kMaxSlotsPerThread * kMaxThreads;
+template <int S>
+int launch_fwd_wide(const float* t_host, const float* ex, const float* ey, const float* em,
+                    const int8_t* a, const int8_t* b1, const int8_t* b0, const float* F0,
+                    const float* ci1, const float* ci2, const float* cim, float* F, float* bv,
+                    float* mf, float* co1, float* co2, float* com, int B, int R, int W, int k0,
+                    cudaStream_t stream) {
+  auto kernel = ci1 != nullptr ? wavefront_fwd_wide<S, true> : wavefront_fwd_wide<S, false>;
+  const int nt = std::min((W + 31) / 32 * 32, kWideThreads);
+  kernel<<<B, nt, 0, stream>>>(load_trans(S, t_host), ex, ey, em, a, b1, b0, F0, ci1, ci2, cim,
+                               F, bv, mf, co1, co2, com, R, W, k0);
+  return (int)cudaGetLastError();
+}
+
+template <int S, bool kExp>
+int launch_back_wide(const float* t_host, const BwdArgs& p, int B, int R, int W,
+                     cudaStream_t stream) {
+  auto kernel = p.ci_b1 != nullptr ? wavefront_back_wide<S, kExp, true>
+                                   : wavefront_back_wide<S, kExp, false>;
+  const int nt = std::min((W + 31) / 32 * 32, kExp ? kExpWideThreads : kWideThreads);
+  kernel<<<B, nt, 0, stream>>>(load_trans(S, t_host), p, R, W);
+  return (int)cudaGetLastError();
+}
+
+// The shared-memory variants take W <= kMaxWidth, the wide ones any W.
+bool bad_shape(int S, int B, int R, int W, bool wide = false) {
+  return (S != 3 && S != 5) || B < 0 || R < 1 || W < 1 || (!wide && W > kMaxWidth);
 }
 
 // The window arguments shared by the backward entry points: the carry in
@@ -1142,10 +1696,81 @@ bool set_window(BwdArgs& p, const float* const* ci, float* const* co, int k0) {
   return k0 >= 0;
 }
 
+int fwd_entry(bool wide, int S, const float* t_host, const float* ex, const float* ey,
+              const float* em, const int8_t* a, const int8_t* b1, const int8_t* b0,
+              const float* F0, const float* ci1, const float* ci2, const float* cim, float* F,
+              float* bv, float* mf, float* co1, float* co2, float* com, int B, int R, int W,
+              int k0, void* stream) {
+  if (bad_shape(S, B, R, W, wide) || k0 < 0 || (F0 == nullptr) == (ci1 == nullptr) ||
+      (ci1 != nullptr && (ci2 == nullptr || cim == nullptr)) ||
+      (co1 != nullptr && (co2 == nullptr || com == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = wide ? (S == 5 ? launch_fwd_wide<5> : launch_fwd_wide<3>)
+                     : (S == 5 ? launch_fwd<5> : launch_fwd<3>);
+  return launch(t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2, com, B, R,
+                W, k0, st);
+}
+
+int bwd_entry(bool wide, int S, const float* t_host, const float* efx, const float* efy,
+              const float* efm, const float* em, const float* F, const float* bv,
+              const int8_t* abw, const int8_t* c1, const int8_t* c0, const int8_t* bm1,
+              const int8_t* bm0, const int8_t* pm, const float* end_row, float* post_m,
+              float* post_x, float* post_y, float* mb, float* tot, const float* const* ci,
+              float* const* co, float* scratch, int B, int R, int W, int k0, void* stream) {
+  BwdArgs p = {};
+  if (bad_shape(S, B, R, W, wide) || !set_window(p, ci, co, k0) || wide != (scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  p.efx = efx, p.efy = efy, p.efm = efm, p.em = em, p.F = F, p.bv = bv;
+  p.abw = abw, p.c1 = c1, p.c0 = c0, p.bm1 = bm1, p.bm0 = bm0, p.pm = pm;
+  p.end_row = end_row, p.mb = mb, p.tot = tot;
+  p.post_m = post_m, p.post_x = post_x, p.post_y = post_y;
+  p.scratch = scratch;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = wide ? (S == 5 ? launch_back_wide<5, false> : launch_back_wide<3, false>)
+                     : (S == 5 ? launch_bwd<5> : launch_bwd<3>);
+  return launch(t_host, p, B, R, W, st);
+}
+
+int exp_entry(bool wide, int S, const float* t_host, const float* efx, const float* efy,
+              const float* efm, const float* em, const float* ex, const float* ey,
+              const float* F, const float* bv, const int8_t* abw, const int8_t* c1,
+              const int8_t* c0, const int8_t* bm1, const int8_t* bm0, const int8_t* a,
+              const int8_t* b1, const int8_t* b0, const int8_t* pm, const float* end_row,
+              const float* adj1, const float* adj2, const int8_t* wx, const int8_t* wy,
+              float* trans, float* emis, float* eacc, float* mb, float* tot, const float* fhc,
+              const float* const* ci, float* const* co, float* scratch, int B, int R, int W,
+              int k0, void* stream) {
+  BwdArgs p = {};
+  // the emission columns: the caller's scratch above kExpSharedWidth (and
+  // always in the wide variant), shared memory below
+  const bool cols = wide || W > kExpSharedWidth;
+  if (bad_shape(S, B, R, W, wide) || !set_window(p, ci, co, k0) ||
+      (fhc != nullptr && ci[0] == nullptr) || cols != (eacc != nullptr) ||
+      wide != (scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  p.fhc = fhc;
+  p.efx = efx, p.efy = efy, p.efm = efm, p.em = em, p.F = F, p.bv = bv;
+  p.abw = abw, p.c1 = c1, p.c0 = c0, p.bm1 = bm1, p.bm0 = bm0, p.pm = pm;
+  p.end_row = end_row, p.mb = mb, p.tot = tot;
+  p.ex = ex, p.ey = ey, p.a = a, p.b1 = b1, p.b0 = b0;
+  p.adj1 = adj1, p.adj2 = adj2, p.wx = wx, p.wy = wy, p.trans = trans, p.emis = emis;
+  p.eacc = eacc, p.scratch = scratch;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = wide ? (S == 5 ? launch_back_wide<5, true> : launch_back_wide<3, true>)
+                     : (S == 5 ? launch_exp<5> : launch_exp<3>);
+  return launch(t_host, p, B, R, W, st);
+}
+
 }  // namespace
 
 // C entry points (loaded with ctypes). Each returns the cudaError_t of
-// the launch (0 on success); the wrapper raises on anything else.
+// the launch (0 on success); the wrapper raises on anything else. The
+// *_wide entry points take the wide variants at any W (the wrappers use
+// them above kMaxWidth); bwd and exp's take the (B, 3, S, W) scratch.
 extern "C" {
 
 // F0 null: a window, started from the carry ci1/ci2/cim (all given);
@@ -1155,17 +1780,18 @@ int cpecan_wavefront_fwd(int S, const float* t_host, const float* ex, const floa
                          const float* F0, const float* ci1, const float* ci2, const float* cim,
                          float* F, float* bv, float* mf, float* co1, float* co2, float* com,
                          int B, int R, int W, int k0, void* stream) {
-  if (bad_shape(S, B, R, W) || k0 < 0 || (F0 == nullptr) == (ci1 == nullptr) ||
-      (ci1 != nullptr && (ci2 == nullptr || cim == nullptr)) ||
-      (co1 != nullptr && (co2 == nullptr || com == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S == 5)
-    return launch_fwd<5>(t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2,
-                         com, B, R, W, k0, st);
-  return launch_fwd<3>(t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2, com,
-                       B, R, W, k0, st);
+  return fwd_entry(false, S, t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1,
+                   co2, com, B, R, W, k0, stream);
+}
+
+int cpecan_wavefront_fwd_wide(int S, const float* t_host, const float* ex, const float* ey,
+                              const float* em, const int8_t* a, const int8_t* b1,
+                              const int8_t* b0, const float* F0, const float* ci1,
+                              const float* ci2, const float* cim, float* F, float* bv, float* mf,
+                              float* co1, float* co2, float* com, int B, int R, int W, int k0,
+                              void* stream) {
+  return fwd_entry(true, S, t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1,
+                   co2, com, B, R, W, k0, stream);
 }
 
 int cpecan_wavefront_bwd(int S, const float* t_host, const float* efx, const float* efy,
@@ -1177,18 +1803,28 @@ int cpecan_wavefront_bwd(int S, const float* t_host, const float* efx, const flo
                          const float* ci_invb, const float* ci_em, const float* ci_bv,
                          float* co_b1, float* co_b2, float* co_invb, float* co_em, float* co_bv,
                          int B, int R, int W, int k0, void* stream) {
-  BwdArgs p = {};
   const float* ci[5] = {ci_b1, ci_b2, ci_invb, ci_em, ci_bv};
   float* co[5] = {co_b1, co_b2, co_invb, co_em, co_bv};
-  if (bad_shape(S, B, R, W) || !set_window(p, ci, co, k0)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  p.efx = efx, p.efy = efy, p.efm = efm, p.em = em, p.F = F, p.bv = bv;
-  p.abw = abw, p.c1 = c1, p.c0 = c0, p.bm1 = bm1, p.bm0 = bm0, p.pm = pm;
-  p.end_row = end_row, p.mb = mb, p.tot = tot;
-  p.post_m = post_m, p.post_x = post_x, p.post_y = post_y;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S == 5) return launch_bwd<5>(t_host, p, B, R, W, st);
-  return launch_bwd<3>(t_host, p, B, R, W, st);
+  return bwd_entry(false, S, t_host, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
+                   end_row, post_m, post_x, post_y, mb, tot, ci, co, nullptr, B, R, W, k0,
+                   stream);
+}
+
+int cpecan_wavefront_bwd_wide(int S, const float* t_host, const float* efx, const float* efy,
+                              const float* efm, const float* em, const float* F,
+                              const float* bv, const int8_t* abw, const int8_t* c1,
+                              const int8_t* c0, const int8_t* bm1, const int8_t* bm0,
+                              const int8_t* pm, const float* end_row, float* post_m,
+                              float* post_x, float* post_y, float* mb, float* tot,
+                              const float* ci_b1, const float* ci_b2, const float* ci_invb,
+                              const float* ci_em, const float* ci_bv, float* co_b1,
+                              float* co_b2, float* co_invb, float* co_em, float* co_bv,
+                              float* scratch, int B, int R, int W, int k0, void* stream) {
+  const float* ci[5] = {ci_b1, ci_b2, ci_invb, ci_em, ci_bv};
+  float* co[5] = {co_b1, co_b2, co_invb, co_em, co_bv};
+  return bwd_entry(true, S, t_host, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
+                   end_row, post_m, post_x, post_y, mb, tot, ci, co, scratch, B, R, W, k0,
+                   stream);
 }
 
 int cpecan_wavefront_exp(int S, const float* t_host, const float* efx, const float* efy,
@@ -1203,31 +1839,47 @@ int cpecan_wavefront_exp(int S, const float* t_host, const float* efx, const flo
                          const float* ci_em, const float* ci_bv, float* co_b1, float* co_b2,
                          float* co_invb, float* co_em, float* co_bv, int B, int R, int W, int k0,
                          void* stream) {
-  BwdArgs p = {};
   const float* ci[5] = {ci_b1, ci_b2, ci_invb, ci_em, ci_bv};
   float* co[5] = {co_b1, co_b2, co_invb, co_em, co_bv};
-  if (bad_shape(S, B, R, W) || W > kExpSlotsPerThread * kExpWideThreads ||
-      !set_window(p, ci, co, k0) || (fhc != nullptr && ci_b1 == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  p.fhc = fhc;
-  p.efx = efx, p.efy = efy, p.efm = efm, p.em = em, p.F = F, p.bv = bv;
-  p.abw = abw, p.c1 = c1, p.c0 = c0, p.bm1 = bm1, p.bm0 = bm0, p.pm = pm;
-  p.end_row = end_row, p.mb = mb, p.tot = tot;
-  p.ex = ex, p.ey = ey, p.a = a, p.b1 = b1, p.b0 = b0;
-  p.adj1 = adj1, p.adj2 = adj2, p.wx = wx, p.wy = wy, p.trans = trans, p.emis = emis;
-  p.eacc = eacc;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S == 5) return launch_exp<5>(t_host, p, B, R, W, st);
-  return launch_exp<3>(t_host, p, B, R, W, st);
+  return exp_entry(false, S, t_host, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a,
+                   b1, b0, pm, end_row, adj1, adj2, wx, wy, trans, emis, eacc, mb, tot, fhc, ci,
+                   co, nullptr, B, R, W, k0, stream);
 }
 
-// wavefront_bwd's launch at (S, W) for streams on the 16-byte grid
-// (aligned != 0) or off it: out = {threads, band slots per compute
-// thread, ring depth (0: direct loads), dynamic shared memory bytes}.
+int cpecan_wavefront_exp_wide(int S, const float* t_host, const float* efx, const float* efy,
+                              const float* efm, const float* em, const float* ex,
+                              const float* ey, const float* F, const float* bv,
+                              const int8_t* abw, const int8_t* c1, const int8_t* c0,
+                              const int8_t* bm1, const int8_t* bm0, const int8_t* a,
+                              const int8_t* b1, const int8_t* b0, const int8_t* pm,
+                              const float* end_row, const float* adj1, const float* adj2,
+                              const int8_t* wx, const int8_t* wy, float* trans, float* emis,
+                              float* eacc, float* mb, float* tot, const float* fhc,
+                              const float* ci_b1, const float* ci_b2, const float* ci_invb,
+                              const float* ci_em, const float* ci_bv, float* co_b1,
+                              float* co_b2, float* co_invb, float* co_em, float* co_bv,
+                              float* scratch, int B, int R, int W, int k0, void* stream) {
+  const float* ci[5] = {ci_b1, ci_b2, ci_invb, ci_em, ci_bv};
+  float* co[5] = {co_b1, co_b2, co_invb, co_em, co_bv};
+  return exp_entry(true, S, t_host, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a,
+                   b1, b0, pm, end_row, adj1, adj2, wx, wy, trans, emis, eacc, mb, tot, fhc, ci,
+                   co, scratch, B, R, W, k0, stream);
+}
+
+// The launch plans of wavefront_bwd and wavefront_exp at (S, W) for
+// streams on the 16-byte grid (aligned != 0) or off it: out = {threads,
+// band slots per compute thread, ring depth (0: direct loads), dynamic
+// shared memory bytes}.
 int cpecan_wavefront_bwd_plan(int S, int W, int aligned, int* out) {
   if (bad_shape(S, 1, 1, W)) return (int)cudaErrorInvalidValue;
   const BwdPlan pl = bwd_plan(S, W, aligned != 0);
+  out[0] = pl.threads, out[1] = pl.slots, out[2] = pl.depth, out[3] = (int)pl.smem;
+  return 0;
+}
+
+int cpecan_wavefront_exp_plan(int S, int W, int aligned, int* out) {
+  if (bad_shape(S, 1, 1, W)) return (int)cudaErrorInvalidValue;
+  const BwdPlan pl = exp_plan(S, W, aligned != 0, W > kExpSharedWidth);
   out[0] = pl.threads, out[1] = pl.slots, out[2] = pl.depth, out[3] = (int)pl.smem;
   return 0;
 }

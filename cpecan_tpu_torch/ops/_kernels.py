@@ -34,7 +34,12 @@ _SIGNATURES = {  # (S, pointers..., B, R, W, k0, stream)
     "cpecan_wavefront_fwd": [_I] + [_P] * 17 + [_I] * 4 + [_P],
     "cpecan_wavefront_bwd": [_I] + [_P] * 29 + [_I] * 4 + [_P],
     "cpecan_wavefront_exp": [_I] + [_P] * 39 + [_I] * 4 + [_P],
+    # the wide variants: bwd and exp take one more pointer, the scratch
+    "cpecan_wavefront_fwd_wide": [_I] + [_P] * 17 + [_I] * 4 + [_P],
+    "cpecan_wavefront_bwd_wide": [_I] + [_P] * 30 + [_I] * 4 + [_P],
+    "cpecan_wavefront_exp_wide": [_I] + [_P] * 40 + [_I] * 4 + [_P],
     "cpecan_wavefront_bwd_plan": [_I, _I, _I, _P],  # (S, W, aligned, int[4] out)
+    "cpecan_wavefront_exp_plan": [_I, _I, _I, _P],
 }
 
 

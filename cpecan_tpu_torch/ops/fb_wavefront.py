@@ -19,8 +19,10 @@ kernels (csrc/wavefront.cu) replace its Pallas kernels:
 
 Each wrapper runs its plain PyTorch version (``fwd_reference`` /
 ``bwd_reference`` / ``exp_reference``) for a CPU tensor, and launches its
-kernel or raises for a CUDA tensor. The plain versions follow the Pallas bodies line for
-line in arithmetic and serve as the kernels' oracle.
+kernel or raises for a CUDA tensor (``kernel_route`` picks the entry
+point: the shared-memory variants up to ``MAX_KERNEL_WIDTH`` band slots,
+the wide variants above). The plain versions follow the Pallas bodies
+line for line in arithmetic and serve as the kernels' oracle.
 
 Layout is batch-major: streams (B, R, W) with R = P+1 diagonals and W
 band slots; the forward intermediate F is (B, R, S, W); the row-constant
@@ -61,12 +63,15 @@ _PM_GAPY = 4
 _PM_ATEND = 8  # k == L (broadcast over slots)
 _PM_BRIDGE = 16  # 1 <= k < L (broadcast over slots)
 
-# Widest band the kernels take: fwd/bwd 1024 threads x 4 slots per
-# thread, exp 512 threads x 8 slots.
+# Widest band of the kernels' shared-memory variants (fwd/bwd 1024 threads
+# x 4 slots per thread, exp 512 x 8); wider bands run the wide variants,
+# whose carries live in device memory (bwd and exp: a (B, 3, S, W) fp32
+# scratch the wrapper passes).
 MAX_KERNEL_WIDTH = 4096
 # Widest band whose per-thread emission accumulators fit exp's shared
-# memory (256 threads x 8 slots); wider launches pass a device scratch
-# buffer for them, (B, S*16, EXP_WIDE_THREADS) fp32.
+# memory (256 threads x 8 slots); wider launches, and every launch of the
+# wide variant, pass a device scratch buffer for them, (B, S*16,
+# EXP_WIDE_THREADS) fp32.
 EXP_SHARED_WIDTH = 2048
 EXP_WIDE_THREADS = 512
 
@@ -78,11 +83,13 @@ KERNEL_NZ = _kernels.kernel_structures()
 
 # Kernel launches since the last reset, per TPU kernel site: the batch
 # path (fwd, bwd, exp), the exact segmented engine's windows (seg_*) and
-# the burn-in-parallel engine's window batches (par_*). The three CUDA
-# kernels serve all sites; each wrapper adds one to the count its caller
-# names where it launches its kernel, and nowhere else.
+# the burn-in-parallel engine's window batches (par_*). The CUDA kernels
+# serve all sites; each wrapper adds one to the count its caller names
+# where it launches a kernel, and nowhere else, and one more to wide_fwd,
+# wide_bwd or wide_exp where that kernel is a wide variant.
 LAUNCHES = {"fwd": 0, "bwd": 0, "exp": 0, "seg_fwd": 0, "seg_bwd": 0,
-            "seg_exp": 0, "par_fwd": 0, "par_bwd": 0}
+            "seg_exp": 0, "par_fwd": 0, "par_bwd": 0, "wide_fwd": 0,
+            "wide_bwd": 0, "wide_exp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -592,6 +599,10 @@ def _ptr(x) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
+def _on_card(x) -> bool:
+    return x.device.type == "cuda"
+
+
 def _check_launch(name: str, S: int, W: int, nz, tensors: dict) -> None:
     """Structure, width, device, dtype, shape and contiguity checks before
     a launch; ``tensors`` maps a name to (tensor, dtype, shape)."""
@@ -602,12 +613,11 @@ def _check_launch(name: str, S: int, W: int, nz, tensors: dict) -> None:
         raise ValueError(
             f"{name}: transitions {sorted(extra)} are outside the kernels' "
             f"{S}-state structure")
-    if not 1 <= W <= MAX_KERNEL_WIDTH:
-        raise ValueError(
-            f"{name}: band width {W} outside the kernel's 1..{MAX_KERNEL_WIDTH}")
+    if W < 1:
+        raise ValueError(f"{name}: band width {W} < 1")
     dev = None
     for key, (x, dtype, shape) in tensors.items():
-        if x.device.type != "cuda":
+        if not _on_card(x):
             raise ValueError(f"{name}: {key} is on {x.device}, not cuda")
         if dev is not None and x.device != dev:
             raise ValueError(f"{name}: {key} is on {x.device}, not {dev}")
@@ -619,6 +629,19 @@ def _check_launch(name: str, S: int, W: int, nz, tensors: dict) -> None:
                 f"{name}: {key} has shape {tuple(x.shape)}, expected {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
+
+
+def kernel_route(kernel: str, device, W: int):
+    """The C entry point that a launch of ``kernel`` ("fwd", "bwd" or
+    "exp") at band width W takes for tensors on ``device``: None for the
+    CPU (the wrapper runs the plain version), else the shared-memory
+    variant's entry point up to MAX_KERNEL_WIDTH and the wide variant's
+    above. The shared-memory entry points pick their own launch plan
+    (``bwd_plan``, ``exp_plan``)."""
+    if device.type == "cpu":
+        return None
+    wide = "_wide" if W > MAX_KERNEL_WIDTH else ""
+    return f"cpecan_wavefront_{kernel}{wide}"
 
 
 def _launch(name: str, fn_name: str, device, *args) -> None:
@@ -667,13 +690,15 @@ def _empty_like_carry(carry):
 
 def fwd(t, ex, ey, em, a, b1, b0, F0, nz, carry=None, k0=0, site="fwd"):
     """Forward wavefront: ``fwd_reference`` for CPU tensors, the CUDA
-    kernel ``wavefront_fwd`` for CUDA tensors. Same contract as
+    kernel ``wavefront_fwd`` (``wavefront_fwd_wide`` above
+    MAX_KERNEL_WIDTH) for CUDA tensors. Same contract as
     ``fwd_reference`` (a window of a long pair passes ``carry`` and its
     first row's diagonal ``k0``); ``t`` may live on the host (no device
     sync). ``site`` names the launch count the call adds to."""
-    if ex.device.type == "cpu":
-        return fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz, carry, k0)
     B, R, W = ex.shape
+    entry = kernel_route("fwd", ex.device, W)
+    if entry is None:
+        return fwd_reference(t, ex, ey, em, a, b1, b0, F0, nz, carry, k0)
     S = (F0 if carry is None else carry[0]).shape[1]
     f32, i8 = torch.float32, torch.int8
     row, rows = (B, R, W), (B, R)
@@ -688,23 +713,25 @@ def fwd(t, ex, ey, em, a, b1, b0, F0, nz, carry=None, k0=0, site="fwd"):
     bv = torch.empty(B, R, W, dtype=f32, device=ex.device)
     mf = torch.empty(B, R, dtype=f32, device=ex.device)
     co = _empty_like_carry(carry)
-    _launch("fwd", "cpecan_wavefront_fwd", ex.device, S, _ptr(th),
+    _launch("fwd", entry, ex.device, S, _ptr(th),
             _ptr(ex), _ptr(ey), _ptr(em), _ptr(a), _ptr(b1), _ptr(b0),
             _ptr(F0) if carry is None else _NULL, *_carry_ptrs(carry, 3),
             _ptr(F), _ptr(bv), _ptr(mf), *_carry_ptrs(co, 3), B, R, W, k0)
-    LAUNCHES[site] += 1
+    _count(site, "fwd", entry)
     return (F, bv, mf) if carry is None else (F, bv, mf, co)
 
 
 def bwd(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row, nz,
         mode: str = "posterior_match", carry=None, k0=0, site="bwd"):
     """Backward+posterior wavefront: ``bwd_reference`` for CPU tensors,
-    the CUDA kernel ``wavefront_bwd`` for CUDA tensors. Same contract as
+    the CUDA kernel ``wavefront_bwd`` (``wavefront_back_wide`` above
+    MAX_KERNEL_WIDTH) for CUDA tensors. Same contract as
     ``bwd_reference``."""
-    if efx.device.type == "cpu":
+    B, R, W = efx.shape
+    entry = kernel_route("bwd", efx.device, W)
+    if entry is None:
         return bwd_reference(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1,
                              bm0, pm, end_row, nz, mode, carry, k0)
-    B, R, W = efx.shape
     S = F.shape[2]
     f32, i8 = torch.float32, torch.int8
     row, rows = (B, R, W), (B, R)
@@ -727,40 +754,69 @@ def bwd(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row, nz,
     px, py = ((_ptr(posts[1]), _ptr(posts[2])) if n_out == 3
               else (_NULL, _NULL))
     co = _empty_like_carry(carry)
-    _launch("bwd", "cpecan_wavefront_bwd", efx.device, S, _ptr(th),
+    scratch = _wide_scratch(entry, B, S, W, efx.device)
+    _launch("bwd", entry, efx.device, S, _ptr(th),
             _ptr(efx), _ptr(efy), _ptr(efm), _ptr(em), _ptr(F), _ptr(bv),
             _ptr(abw), _ptr(c1), _ptr(c0), _ptr(bm1), _ptr(bm0), _ptr(pm),
             _ptr(end_row), _ptr(posts[0]), px, py, _ptr(mb), _ptr(tot),
-            *_carry_ptrs(carry, 5), *_carry_ptrs(co, 5), B, R, W, k0)
-    LAUNCHES[site] += 1
+            *_carry_ptrs(carry, 5), *_carry_ptrs(co, 5),
+            *map(_ptr, scratch), B, R, W, k0)
+    _count(site, "bwd", entry)
     return (posts, mb, tot) if carry is None else (posts, mb, tot, co)
 
 
-def bwd_plan(S: int, W: int, aligned: bool = True) -> dict:
-    """The launch ``wavefront_bwd`` takes at (S, W), for streams that start
-    on 16-byte boundaries (``aligned``) or not: threads, band slots per
-    compute thread, the depth of its ring of streams in shared memory (0:
-    the variant that loads them directly) and its dynamic shared memory
-    in bytes. Builds the kernel library on first use."""
+def _wide_scratch(entry: str, B: int, S: int, W: int, device) -> list:
+    """The wide variants' extra argument: [a (B, 3, S, W) fp32 scratch]
+    for the backward carries, [] for the shared-memory variants."""
+    if not entry.endswith("_wide"):
+        return []
+    return [torch.empty(B, 3, S, W, dtype=torch.float32, device=device)]
+
+
+def _count(site: str, kernel: str, entry: str) -> None:
+    LAUNCHES[site] += 1
+    if entry.endswith("_wide"):
+        LAUNCHES[f"wide_{kernel}"] += 1
+
+
+def _plan(kernel: str, S: int, W: int, aligned: bool) -> dict:
     out = (ctypes.c_int * 4)()
-    err = _kernels.load().cpecan_wavefront_bwd_plan(
+    err = getattr(_kernels.load(), f"cpecan_wavefront_{kernel}_plan")(
         S, W, int(aligned), ctypes.cast(out, ctypes.c_void_p))
     if err != 0:
-        raise ValueError(f"bwd_plan: no launch for S={S}, W={W}")
+        raise ValueError(f"{kernel}_plan: no launch for S={S}, W={W}")
     return dict(zip(("threads", "slots", "depth", "smem"), out))
+
+
+def bwd_plan(S: int, W: int, aligned: bool = True) -> dict:
+    """The launch ``wavefront_bwd`` takes at (S, W) <= MAX_KERNEL_WIDTH,
+    for streams that start on 16-byte boundaries (``aligned``) or not:
+    threads, band slots per compute thread, the depth of its ring of
+    streams in shared memory (0: the variant that loads them directly)
+    and its dynamic shared memory in bytes. Builds the kernel library on
+    first use."""
+    return _plan("bwd", S, W, aligned)
+
+
+def exp_plan(S: int, W: int, aligned: bool = True) -> dict:
+    """``bwd_plan``'s counterpart for ``wavefront_exp`` (1, 2, 4 or 8
+    slots per thread; a ring of at least 3 stages)."""
+    return _plan("exp", S, W, aligned)
 
 
 def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
         b0, pm, end_row, adj1, adj2, wx, wy, nz, halo=None, carry=None, k0=0,
         site="exp"):
     """Backward recursion plus expected counts: ``exp_reference`` for CPU
-    tensors, the CUDA kernel ``wavefront_exp`` for CUDA tensors. Same
-    contract as ``exp_reference`` (per-pair trans and emis)."""
-    if efx.device.type == "cpu":
+    tensors, the CUDA kernel ``wavefront_exp`` (``wavefront_back_wide``
+    above MAX_KERNEL_WIDTH) for CUDA tensors. Same contract as
+    ``exp_reference`` (per-pair trans and emis)."""
+    B, R, W = efx.shape
+    entry = kernel_route("exp", efx.device, W)
+    if entry is None:
         return exp_reference(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0,
                              bm1, bm0, a, b1, b0, pm, end_row, adj1, adj2,
                              wx, wy, nz, halo, carry, k0)
-    B, R, W = efx.shape
     S = F.shape[2]
     f32, i8 = torch.float32, torch.int8
     row, rows = (B, R, W), (B, R)
@@ -788,15 +844,17 @@ def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
     mb = torch.empty(B, R, dtype=f32, device=dev)
     tot = torch.empty(B, R, dtype=f32, device=dev)
     co = _empty_like_carry(carry)
-    _launch("exp", "cpecan_wavefront_exp", dev, S, _ptr(th), _ptr(efx),
+    scratch = _wide_scratch(entry, B, S, W, dev)
+    _launch("exp", entry, dev, S, _ptr(th), _ptr(efx),
             _ptr(efy), _ptr(efm), _ptr(em), _ptr(ex), _ptr(ey), _ptr(F),
             _ptr(bv), _ptr(abw), _ptr(c1), _ptr(c0), _ptr(bm1), _ptr(bm0),
             _ptr(a), _ptr(b1), _ptr(b0), _ptr(pm), _ptr(end_row), _ptr(adj1),
             _ptr(adj2), _ptr(wx), _ptr(wy), _ptr(trans), _ptr(emis),
             _ptr(eacc) if eacc is not None else _NULL,
             _ptr(mb), _ptr(tot), _ptr(halo) if halo is not None else _NULL,
-            *_carry_ptrs(carry, 5), *_carry_ptrs(co, 5), B, R, W, k0)
-    LAUNCHES[site] += 1
+            *_carry_ptrs(carry, 5), *_carry_ptrs(co, 5),
+            *map(_ptr, scratch), B, R, W, k0)
+    _count(site, "exp", entry)
     return ((trans, emis, mb, tot) if carry is None
             else (trans, emis, mb, tot, co))
 

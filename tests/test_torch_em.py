@@ -73,9 +73,10 @@ def test_expectation_step_matches_jax(sm_factory, hmm_type):
 
 def test_wide_unanchored_gap_buckets_within_the_kernels():
     """A task with a 2.6 kb unanchored two-sided gap does not stream and
-    has a band wider than the exp kernel's shared-memory variant takes;
-    and no band that does not stream (a full band is the widest for its
-    diagonals) is wider than the kernels take."""
+    has a band wider than the exp kernel keeps its emission columns in
+    shared memory for; and no band that does not stream (a full band is
+    the widest for its diagonals) is wider than the kernels' shared-memory
+    variants take (MAX_KERNEL_WIDTH, where the wide variants start)."""
     from cpecan_tpu_torch.align.batch import should_stream
     from cpecan_tpu_torch.align.pairwise import _width_bucket
     from cpecan_tpu_torch.ops import fb_wavefront

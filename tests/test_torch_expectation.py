@@ -189,9 +189,9 @@ def cuda_device():
     (state_machine3, fb_wavefront.MAX_KERNEL_WIDTH)])
 def test_exp_kernel_matches_plain_version_on_card(cuda_device, sm_factory,
                                                   width):
-    """Width 544 gives the kernel three slots per thread; the two widest
-    run its 512-thread variant, with the emission accumulators in device
-    scratch memory."""
+    """Width 544 gives the kernel four slots per thread and a ring of
+    streams; the two widest run eight slots with the emission accumulators
+    in device scratch memory."""
     hmm = PairHMM.from_state_machine(sm_factory())
     _, args = _oracle_batch(hmm.state_number)
     exp_args, bwd_args = _exp_inputs(hmm.to(cuda_device), args, width,
@@ -226,10 +226,11 @@ def test_exp_wrapper_rejects_what_it_cannot_run(cuda_device):
         fb_wavefront.exp(*exp_args[:21], exp_args[21].long(), *exp_args[22:])
     with pytest.raises(ValueError):
         fb_wavefront.exp(*exp_args[:19], exp_args[19].cpu(), *exp_args[20:])
-    widest = fb_wavefront.MAX_KERNEL_WIDTH
-    exp_args, _ = _exp_inputs(hmm, args, widest, cuda_device)
-    big = [torch.nn.functional.pad(x, (0, 32)).contiguous()
-           if torch.is_tensor(x) and x.shape[-1] == widest else x
-           for x in exp_args]
-    with pytest.raises(ValueError, match="band width"):
-        fb_wavefront.exp(*big)
+    # a transition outside the kernels' 5-state structure
+    with pytest.raises(ValueError, match="outside the kernels"):
+        fb_wavefront.exp(*exp_args[:-1], exp_args[-1] + ((0, 1, 2),))
+    # an F halo without the carry in: the entry point refuses the launch
+    B, _, S, Wd = exp_args[7].shape
+    halo = torch.zeros(B, 2, S, Wd, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fb_wavefront.exp(*exp_args, halo=halo)

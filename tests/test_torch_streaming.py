@@ -313,6 +313,31 @@ def test_expectation_step_stream_route_matches(monkeypatch):
 # --------------------------------------------------------------------------
 
 
+def test_wide_unanchored_gap_streams_to_the_wide_kernels():
+    """An anchor-free 4300 x 4300 gap at realign's parameters (split only
+    above 4400 x 4400, so the gap stays one chunk) has a band wider than
+    the kernels' shared-memory variants take, equal to cpecan_tpu's band;
+    the chunk streams, and on the card each kernel launch of that width
+    takes its wide variant."""
+    from cpecan_tpu.ops.band import construct_band as jax_construct_band
+    from cpecan_tpu_torch.align.pairwise import _width_bucket
+    from cpecan_tpu_torch.cli import realign
+
+    p = realign.alignment_parameters(realign.make_parser().parse_args(
+        ["in.fa", "--splitMatrixBiggerThanThis", "4400"]))
+    assert 4300 * 4300 <= p.splitMatrixBiggerThanThis
+    band = construct_band([], 4300, 4300, p.diagonalExpansion)
+    ref = jax_construct_band([], 4300, 4300, p.diagonalExpansion)
+    np.testing.assert_array_equal(band.offsets, ref.offsets)
+    np.testing.assert_array_equal(band.widths, ref.widths)
+    W = _width_bucket(band.frame_width())
+    assert W > fb_wavefront.MAX_KERNEL_WIDTH
+    assert fb_streaming.should_stream(band.diagonal_number, W)
+    for kernel in ("fwd", "bwd", "exp"):
+        assert fb_wavefront.kernel_route(
+            kernel, torch.device("cuda"), W) == f"cpecan_wavefront_{kernel}_wide"
+
+
 def test_engine_routing_on_cpu_tensors():
     x, y, band = _case(n=120, seed=17)
     hmm = PairHMM.from_state_machine(state_machine5())

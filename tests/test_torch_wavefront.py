@@ -10,6 +10,9 @@ jax is imported inside the JAX comparisons only, so that the ``cuda``
 tests of this file also run where jax is not installed.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +21,7 @@ from cpecan_tpu.models.state_machine import state_machine3, state_machine5
 from cpecan_tpu.ops.band import construct_band, full_band, pad_band
 from cpecan_tpu.utils.symbols import encode
 from cpecan_tpu_torch.models.state_machine import PairHMM
-from cpecan_tpu_torch.ops import fb_batch, fb_wavefront
+from cpecan_tpu_torch.ops import _kernels, fb_batch, fb_wavefront
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -178,6 +181,90 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert not any(fb_wavefront.LAUNCHES.values())
+
+
+# widths around the start of the wide variants (MAX_KERNEL_WIDTH = 4096)
+WIDE_WIDTHS = (4096, 4097, 4224, 8200)
+
+
+@pytest.mark.parametrize("W", WIDE_WIDTHS)
+def test_kernel_route_by_width(W):
+    """CPU tensors take the plain versions; CUDA tensors take a kernel's
+    entry point, the shared-memory variant up to MAX_KERNEL_WIDTH and the
+    wide variant above, never a plain version."""
+    for kernel in ("fwd", "bwd", "exp"):
+        assert fb_wavefront.kernel_route(kernel, torch.device("cpu"), W) is None
+        entry = fb_wavefront.kernel_route(kernel, torch.device("cuda"), W)
+        wide = W > fb_wavefront.MAX_KERNEL_WIDTH
+        assert entry == f"cpecan_wavefront_{kernel}" + ("_wide" if wide else "")
+        assert entry in _kernels._SIGNATURES
+
+
+class _StubLibrary:
+    """Stands in for the kernel library: each entry point checks its
+    argument count against the ctypes signature and records its name."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            assert len(args) == len(_kernels._SIGNATURES[name]), name
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("W", WIDE_WIDTHS)
+def test_wrappers_launch_the_variant_of_their_width(monkeypatch, W, window):
+    """The three wrappers on device tensors (meta tensors stand in for the
+    card's) call the entry point of their width, batch and window alike,
+    with the wide variants' scratch where they take one, and never a
+    plain version."""
+    lib = _StubLibrary()
+    monkeypatch.setattr(_kernels, "load", lambda: lib)
+    monkeypatch.setattr(fb_wavefront, "_on_card",
+                        lambda x: x.device.type == "meta")
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran for device tensors")
+
+    for name in ("fwd_reference", "bwd_reference", "exp_reference"):
+        monkeypatch.setattr(fb_wavefront, name, plain)
+    hmm = PairHMM.from_state_machine(state_machine5())
+    rng = np.random.default_rng(W)
+
+    def meta(x):
+        if isinstance(x, tuple) and x and torch.is_tensor(x[0]):
+            return tuple(map(meta, x))
+        return x.to("meta") if torch.is_tensor(x) else x
+
+    fin, fkw = random_fwd_inputs(rng, hmm, 2, 3, W, window)
+    ein, ekw = random_exp_inputs(rng, hmm, 2, 3, W, window)
+    bin_ = [*ein[:5], *ein[7:14], *ein[17:19], ein[23]]
+    bkw = {"carry": ekw["carry"]} if window else {}
+    fb_wavefront.reset_launch_counts()
+    fb_wavefront.fwd(fin[0], *map(meta, fin[1:]), **{k: meta(v) for k, v in fkw.items()})
+    fb_wavefront.bwd(bin_[0], *map(meta, bin_[1:]), "posterior_all",
+                     **{k: meta(v) for k, v in bkw.items()})
+    fb_wavefront.exp(ein[0], *map(meta, ein[1:]), **{k: meta(v) for k, v in ekw.items()})
+    wide = "_wide" if W > fb_wavefront.MAX_KERNEL_WIDTH else ""
+    assert [name for name, _ in lib.calls] == [
+        f"cpecan_wavefront_{k}{wide}" for k in ("fwd", "bwd", "exp")]
+    counts = {k: 1 for k in ("fwd", "bwd", "exp")}
+    if wide:
+        counts.update(wide_fwd=1, wide_bwd=1, wide_exp=1)
+    assert fb_wavefront.LAUNCHES == {**{k: 0 for k in fb_wavefront.LAUNCHES},
+                                     **counts}
+    for name, args in lib.calls:
+        # (..., B, R, W, k0, stream); fwd's window starts at k0 = 6
+        k0 = 6 if window and name.startswith("cpecan_wavefront_fwd") else 0
+        assert args[-5:-1] == (2, 3, W, k0), name
 
 
 def _run_full_band(sm, x, y, rl=False, rr=False, device="cpu"):
@@ -367,6 +454,72 @@ def random_bwd_inputs(rng, hmm, B, R, W, carry=False):
                   unif(B, W), unif(B, W))
 
 
+def random_fwd_inputs(rng, hmm, B, R, W, window=False):
+    """wavefront_fwd's inputs filled at random: emission streams in
+    [0.1, 1), random shift selects, a start row F0 in [0, 1); with
+    ``window`` a random carry in (F_{k0-1}, F_{k0-2}, 1/m) in place of
+    F0's role and k0 = 6. CPU tensors: (arguments in the order of
+    ``fb_wavefront.fwd``, keyword arguments)."""
+    S = hmm.state_number
+
+    def unif(*shape, lo=0.0):
+        return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(np.float32))
+
+    bits = [torch.from_numpy((rng.random((B, R)) < 0.5).astype(np.int8))
+            for _ in range(3)]
+    args = [hmm.t_prob_host, *(unif(B, R, W, lo=0.1) for _ in range(3)),
+            *bits, unif(B, S, W), hmm.nz]
+    kw = ({"carry": (unif(B, S, W), unif(B, S, W), 0.5 + unif(B)), "k0": 6}
+          if window else {})
+    return args, kw
+
+
+def random_exp_inputs(rng, hmm, B, R, W, window=False):
+    """wavefront_exp's inputs filled at random, as ``random_bwd_inputs``
+    fills bwd's (whose draws come first): forward emission streams in
+    [0.1, 1), random forward shift selects, adj1/adj2 in [0.5, 1.5) and
+    symbol pairs in 0..5 (4 and 5, N and the sentinel, add no emission
+    count). With ``window`` also the F halo (B, 2, S, W) and a random
+    carry in. CPU tensors: (arguments in the order of
+    ``fb_wavefront.exp``, keyword arguments)."""
+    S = hmm.state_number
+    got = random_bwd_inputs(rng, hmm, B, R, W, carry=window)
+    bw, carry = got if window else (got, None)
+
+    def unif(*shape, lo=0.0):
+        return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(np.float32))
+
+    fwd_streams = [unif(B, R, W, lo=0.1) for _ in range(2)]
+    sel = [torch.from_numpy((rng.random((B, R)) < 0.5).astype(np.int8))
+           for _ in range(3)]
+    adj = [0.5 + unif(B, R) for _ in range(2)]
+    sym = [torch.from_numpy(rng.integers(0, 6, (B, R, W)).astype(np.int8))
+           for _ in range(2)]
+    args = [*bw[:5], *fwd_streams, *bw[5:12], *sel, *bw[12:14], *adj, *sym,
+            bw[14]]
+    kw = {} if not window else {"halo": unif(B, 2, S, W), "carry": carry}
+    return args, kw
+
+
+def assert_exp_close(got, want, what):
+    """exp outputs (trans, emis, mb, total_raw[, carry out]): the counts
+    within EXP_RTOL relative (fp32 sums over the slots and diagonals in
+    another order), mb and total_raw within 1e-5 absolute, the carry out
+    at rtol 1e-4."""
+    pairs = [("trans", got[0], want[0], (1e-5, 1e-7)),
+             ("emis", got[1], want[1], (1e-5, 1e-7)),
+             ("mb", got[2], want[2], (0.0, 1e-5)),
+             ("total_raw", got[3], want[3], (0.0, 1e-5))]
+    if len(want) > 4:
+        pairs += [(f"carry {i}", g, w, (1e-4, 1e-6))
+                  for i, (g, w) in enumerate(zip(got[4], want[4]))]
+    for key, g, w, (rtol, atol) in pairs:
+        g = g.cpu()
+        assert torch.isfinite(g).all(), (what, key)
+        torch.testing.assert_close(g, w.cpu(), rtol=rtol, atol=atol,
+                                   msg=f"{what} {key}")
+
+
 def assert_bwd_close(got, want, what):
     """bwd outputs (posts, mb, total_raw[, carry out]) within TOLERANCES
     (the carry out, like F and bv in chip_smoke.py, at rtol 1e-4)."""
@@ -426,3 +579,137 @@ def test_bwd_kernel_off_grid_streams_on_card(cuda_device, W):
     want = fb_wavefront.bwd_reference(*args, "posterior_all")
     torch.cuda.synchronize()
     assert_bwd_close(got, want, f"off-grid pm W={W}")
+
+
+# --------------------------------------------------------------------------
+# On the card: wavefront_exp in each of its launch plans, and the wide
+# variants of all three kernels
+# --------------------------------------------------------------------------
+
+# every ring depth (4, 3), the direct loads (W % 16 != 0, too little shared
+# memory for three stages, 8 slots), 1, 2, 4 and 8 slots per thread, and
+# the emission columns in device scratch (W > 2048)
+EXP_WIDTHS = (32, 40, 128, 384, 544, 768, 1664, 2048, 4096)
+# wavefront_exp's (slots, ring depth) per (S, W) for 16-byte-aligned streams
+EXP_PLANS = {
+    5: {32: (1, 4), 40: (1, 0), 128: (1, 4), 384: (2, 4), 544: (4, 4),
+        768: (4, 3), 1664: (8, 0), 2048: (8, 0), 4096: (8, 0)},
+    3: {32: (1, 4), 40: (1, 0), 128: (1, 4), 384: (2, 4), 544: (4, 4),
+        768: (4, 4), 1664: (8, 0), 2048: (8, 0), 4096: (8, 0)}}
+
+
+def _on(device, args, kw):
+    dev = lambda a: a.to(device) if torch.is_tensor(a) else a
+    return ([args[0]] + [dev(a) for a in args[1:]],
+            {k: tuple(map(dev, v)) if isinstance(v, tuple) else dev(v)
+             for k, v in kw.items()})
+
+
+def _bwd_of_exp(args, kw):
+    """wavefront_bwd's arguments from wavefront_exp's."""
+    return ([*args[:5], *args[7:14], *args[17:19], args[23]],
+            {k: v for k, v in kw.items() if k != "halo"})
+
+
+def _compute_threads(plan):
+    return plan["threads"] - (32 if plan["depth"] else 0), plan["slots"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("W", EXP_WIDTHS)
+@pytest.mark.parametrize("sm_factory", [state_machine5, state_machine3])
+def test_exp_kernel_launch_plans_on_card(cuda_device, sm_factory, W, window):
+    """wavefront_exp against exp_reference on the same card tensors at
+    widths that run each launch plan, as a batch and as a window with the
+    F halo, a carry in and k0 = 7 (67 diagonals: the ring wraps many
+    times). mb and total_raw against wavefront_bwd's on the same inputs:
+    bit for bit where the two plans give the same threads and slots."""
+    hmm = PairHMM.from_state_machine(sm_factory())
+    S = hmm.state_number
+    plan = fb_wavefront.exp_plan(S, W)
+    assert (plan["slots"], plan["depth"]) == EXP_PLANS[S][W]
+    args, kw = random_exp_inputs(np.random.default_rng(W + S), hmm, 3, 67, W,
+                                 window)
+    if window:
+        kw["k0"] = 7
+    args, kw = _on(cuda_device, args, kw)
+    fb_wavefront.reset_launch_counts()
+    got = fb_wavefront.exp(*args, **kw)
+    want = fb_wavefront.exp_reference(*args, **kw)
+    bargs, bkw = _bwd_of_exp(args, kw)
+    _, mb_b, tot_b, *_ = fb_wavefront.bwd(*bargs, **bkw)
+    torch.cuda.synchronize()
+    assert fb_wavefront.LAUNCHES["exp"] == 1
+    assert_exp_close(got, want, f"S={S} W={W} window={window}")
+    assert torch.equal(got[2], mb_b)
+    if _compute_threads(plan) == _compute_threads(fb_wavefront.bwd_plan(S, W)):
+        assert torch.equal(got[3], tot_b)
+    torch.testing.assert_close(got[3], tot_b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 384, 544])
+def test_exp_kernel_off_grid_streams_on_card(cuda_device, W):
+    """A stream off the 16-byte grid (here wx, one byte in) cannot feed the
+    ring's bulk copies: the launch runs the direct-load variant (1, 2 and
+    4 slots here), and the outputs still match exp_reference."""
+    hmm = PairHMM.from_state_machine(state_machine5())
+    assert fb_wavefront.exp_plan(5, W)["depth"] >= 3
+    assert fb_wavefront.exp_plan(5, W, aligned=False)["depth"] == 0
+    args, kw = random_exp_inputs(np.random.default_rng(W + 9), hmm, 2, 37, W,
+                                 window=True)
+    args, kw = _on(cuda_device, args, kw)
+    wx = args[21]
+    buf = torch.empty(wx.numel() + 16, dtype=wx.dtype, device=cuda_device)
+    args[21] = buf[1:1 + wx.numel()].view(wx.shape)
+    args[21].copy_(wx)
+    got = fb_wavefront.exp(*args, **kw)
+    want = fb_wavefront.exp_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert_exp_close(got, want, f"off-grid wx W={W}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("W", [4224, 8200])
+@pytest.mark.parametrize("kernel", ["fwd", "bwd", "exp"])
+def test_wide_variants_on_card(cuda_device, kernel, W, window):
+    """Bands wider than MAX_KERNEL_WIDTH run the wide variants (carries in
+    device memory): against the plain versions on the same card tensors,
+    as a batch and as a window (carries in and out; exp's F halo), at a
+    width on the 16-byte grid and one off it."""
+    hmm = PairHMM.from_state_machine(state_machine5())
+    rng = np.random.default_rng(W)
+    if kernel == "fwd":
+        args, kw = random_fwd_inputs(rng, hmm, 2, 29, W, window)
+    elif kernel == "bwd":
+        got_ = random_bwd_inputs(rng, hmm, 2, 29, W, carry=window)
+        args, carry = got_ if window else (got_, None)
+        args = [*args, "posterior_all"]
+        kw = {"carry": carry, "k0": 5} if window else {}
+    else:
+        args, kw = random_exp_inputs(rng, hmm, 2, 29, W, window)
+        if window:
+            kw["k0"] = 3
+    args, kw = _on(cuda_device, args, kw)
+    assert fb_wavefront.kernel_route(kernel, cuda_device, W).endswith("_wide")
+    fb_wavefront.reset_launch_counts()
+    got = getattr(fb_wavefront, kernel)(*args, **kw)
+    want = getattr(fb_wavefront, f"{kernel}_reference")(*args, **kw)
+    torch.cuda.synchronize()
+    assert fb_wavefront.LAUNCHES[kernel] == 1
+    assert fb_wavefront.LAUNCHES[f"wide_{kernel}"] == 1
+    what = f"wide {kernel} W={W} window={window}"
+    if kernel == "bwd":
+        assert_bwd_close(got, want, what)
+    elif kernel == "exp":
+        assert_exp_close(got, want, what)
+    else:
+        keys = ["F", "bv", "mf"] + [f"carry {i}" for i in range(3)]
+        flat = list(got[:3]) + list(got[3] if window else [])
+        ref = list(want[:3]) + list(want[3] if window else [])
+        for key, g, w in zip(keys, flat, ref):
+            rtol, atol = TOLERANCES.get(key, (1e-4, 1e-6))
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
+                                       msg=f"{what} {key}")
