@@ -13,11 +13,12 @@ Phases (any failure raises, so the exit code is non-zero):
      tolerances, and time both per call; on the headline and the 3-state
      batch the same for the expectation kernel, and on a full band of
      2.5 kb pairs with its emission bins in device scratch (W > 2048);
-     then the backward kernel across band widths 32-4096 (B=64, R=1025),
-     and the expectation kernel across the same and two more: against
-     its plain version, its launch plan (ring depth, shared memory), time,
-     us per diagonal, share of the bound and ptxas registers/spills, with
-     its direct-load variant beside the ring where it has one;
+     then the forward and the backward kernel across band widths 32-4096
+     (B=64, R=1025), and the expectation kernel across the same and two
+     more: against its plain version, its launch plan (ring depth, shared
+     memory), time, us per diagonal, share of the bound and ptxas
+     registers/spills, with its direct-load variant beside the ring where
+     it has one;
   4. realign main path: cpecan_tpu_torch.cli.realign.main on 1024
      generated 1 kb record pairs (default decode) and 256 of them with
      --mea, with every kernel's launch count reset before and read after;
@@ -137,12 +138,11 @@ def phase_device():
 
 def _instantiation(kernel, args):
     """A kernel instantiation's name from its mangled template arguments:
-    fwd<S,batch|window>, bwd<S,slots,ring|direct,batch|window>,
-    exp<S,slots,ring|direct,batch|window>, fwd_wide<S,batch|window>,
-    back_wide<S,bwd|exp,batch|window>."""
+    fwd, bwd and exp <S,slots,ring|direct,batch|window>,
+    fwd_wide<S,batch|window>, back_wide<S,bwd|exp,batch|window>."""
     vals = [v for _, v in re.findall(r"L([ib])(\d+)E", args)]
     vals[-1] = "window" if vals[-1] == "1" else "batch"
-    if kernel in ("wavefront_bwd", "wavefront_exp"):
+    if kernel in ("wavefront_fwd", "wavefront_bwd", "wavefront_exp"):
         vals[2] = "ring" if vals[2] == "1" else "direct"
     if kernel == "wavefront_back_wide":
         vals[1] = "exp" if vals[1] == "1" else "bwd"
@@ -508,11 +508,73 @@ def _on_grid(args):
 
 
 def _off_grid(x):
-    """A contiguous copy of int8 ``x`` that starts one byte past a 16-byte
-    boundary: wavefront_bwd then runs its direct-load variant."""
+    """A contiguous copy of ``x`` (int8 or float32) that starts one element
+    past a 16-byte boundary: a kernel with a ring then runs its
+    direct-load variant."""
     buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
     out = buf[1:1 + x.numel()].view(x.shape)
     out.copy_(x)
+    return out
+
+
+def phase_fwd_sweep(card, ptxas):
+    """wavefront_fwd across band widths on the bwd sweep's batch shape
+    (B=SWEEP_B identical 512 bp pairs, anchors every 50 bp, the bands
+    padded out to W; dense anchors at W=32), 5-state: the kernel against
+    fwd_reference on the same card tensors (F, bv and mf within the
+    tolerances, and whether each is bit-equal), and per width its launch
+    plan (threads, slots, ring depth, shared memory), its time and us per
+    diagonal, its share of the bound and the ptxas line of the
+    instantiation that ran. Where the plan has a ring, the direct-load
+    variant (ex off the 16-byte grid) is checked and timed beside it.
+    Returns {(W, variant): ms}."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    t0 = time.perf_counter()
+    hmm = PairHMM.from_state_machine(state_machine5()).cuda()
+    S, t = hmm.state_number, hmm.t_prob_host
+    rng = np.random.default_rng(13)
+    out = {}
+    for W in SWEEP_WIDTHS:
+        bt = _band_batch(rng, SWEEP_B, SWEEP_P, "forward", state_machine5,
+                         anchor_every=1 if W == 32 else 50,
+                         seq_len=SWEEP_P // 2, width=W)
+        pre = wf.precompute(hmm, *bt["args"], width=W)
+        fin = [t, pre["ex"], pre["ey"], pre["em"], pre["a"], pre["b1"],
+               pre["b0"], pre["F0"], hmm.nz]
+        want = wf.fwd_reference(*fin)
+        grid = all(fin[i].data_ptr() % 16 == 0 for i in (1, 2, 3))
+        ring = wf.fwd_plan(S, W)["depth"] > 0 and grid
+        variants = [("ring" if ring else "direct", fin)]
+        if ring:
+            variants.append(("direct", [t, _off_grid(pre["ex"])] + fin[2:]))
+        B, R, _ = pre["ex"].shape
+        bms, by = _bound(B, R, W, S, hmm.nz, "fwd")
+        log(f"fwd sweep W={W}: B={B} R={R}; bound {bms:.4f} ms ({by})")
+        for name, args in variants:
+            plan = wf.fwd_plan(S, W, aligned=name == "ring")
+            got = wf.fwd(*args)
+            errs, same = {}, []
+            for k, g, w_ in zip(("F", "bv", "mf"), got, want):
+                rtol, atol = TOLERANCES.get(k, (1e-4, 1e-6))
+                torch.testing.assert_close(g, w_, rtol=rtol, atol=atol,
+                                           msg=f"fwd sweep W={W} {name} {k}")
+                errs[k] = float((g - w_).abs().max())
+                same.append(f"{k} {'bit-equal' if torch.equal(g, w_) else 'not bit-equal'}")
+            ms = _median_ms(lambda: wf.fwd(*args), 5)
+            out[(W, name)] = ms
+            inst = f"wavefront_fwd<{S},{plan['slots']},{name},batch>"
+            log(f"  {name}: {plan['threads']} threads x {plan['slots']} slots, "
+                f"ring depth {plan['depth']}, shared memory {plan['smem']} B "
+                f"per block; {ms:.3f} ms ({1e3 * ms / R:.3f} us per diagonal, "
+                f"{100 * bms / ms:.1f}% of the bound), max abs err "
+                f"{max(errs.values()):.3g} ({', '.join(same)}; {card}); "
+                f"ptxas {inst}: "
+                f"{ptxas.get(inst, 'not reported (library already built)')}")
+        del bt, pre, fin, want, variants
+        torch.cuda.empty_cache()
+    log(f"fwd sweep: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1875,6 +1937,7 @@ def main() -> int:
     card, smi = phase_device()
     ptxas = phase_build()
     summary = phase_kernels(card)
+    phase_fwd_sweep(card, ptxas)
     phase_bwd_sweep(card, ptxas)
     phase_exp_sweep(card, ptxas)
 

@@ -36,10 +36,10 @@
 // Design: one thread block per pair, threads over the W band slots (each
 // thread owns a few slots: W <= 4096 in the shared-memory variants). The
 // diagonal loop runs inside the block; the carries that persist across
-// grid steps in VMEM on the TPU live here in shared memory (F_{k-1},
-// F_{k-2}; B_{k+1}, B_{k+2}, bridgevec_{k+1}) and registers (1/m, 1/mb,
-// em_{k+1}). Bands wider than 4096 slots, whose carries do not fit in
-// shared memory, run the wide variants (wavefront_fwd_wide,
+// grid steps in VMEM on the TPU live here in shared memory (F_{k-1};
+// B_{k+1}, B_{k+2}, bridgevec_{k+1}) and registers (F_{k-2}'s operands,
+// 1/m, 1/mb, em_{k+1}). Bands wider than 4096 slots, whose carries do not
+// fit in shared memory, run the wide variants (wavefront_fwd_wide,
 // wavefront_back_wide; see there). The neighbour
 // shifts in {-1, 0, +1} are shared-memory reads of slot j +- 1 with zero
 // fill outside [0, W), like the Pallas _shift_l/_shift_r. The row max
@@ -58,6 +58,28 @@
 // parallel engine a few windows per launch, and the batch path ~2 blocks
 // per SM. Every carry stays on chip, so F and the streams are the only
 // device-memory traffic.
+//
+// wavefront_fwd is built for that chain. Per diagonal it has one block
+// barrier and no device-memory read on the chain:
+//   - two (S, W) rows in shared memory alternate by diagonal; F_{k-2}'s
+//     operands (the middle neighbour, the bridge) are taken into registers
+//     while F_{k-2} is read as diagonal k-1's neighbour row, so no row is
+//     overwritten while another thread may read it;
+//   - a rescaled row is stored raw and its scale is applied by the next
+//     diagonal's reads (the partial maxima cross the one barrier);
+//   - the shift bytes are read a diagonal ahead into registers, the
+//     streams a diagonal ahead into a shared-memory stage by each thread's
+//     asynchronous copies or (its ring variant, as wavefront_bwd's below,
+//     stages of ex, ey, em) D diagonals ahead by TMA;
+//   - in the ring variant the producer warp also stores each finished row
+//     of F from shared memory with one bulk copy: a row's S * W floats
+//     are most of the kernel's device-memory traffic, and as per-thread
+//     stores they held the compute threads back at wide bands;
+//   - 1, 2 or 4 band slots per thread, the fewest that cover W with at
+//     most kFwdThreads threads (above 4 * kFwdThreads, 16 slots on at
+//     most 256 threads, whose 255 registers a thread hold 16 slots'
+//     operands: 8 slots on 512 threads, at 128 registers, spilled);
+//   - it rounds as fwd_reference does, so F, bv and mf are bit-equal.
 //
 // wavefront_bwd is built for that chain. Per diagonal it has at most one
 // device-memory latency round and two barriers:
@@ -123,10 +145,10 @@
 
 namespace {
 
-constexpr int kMaxSlotsPerThread = 4;
 constexpr int kMaxThreads = 1024;
 // the shared-memory variants take W <= kMaxWidth, the wide ones any W
-constexpr int kMaxWidth = kMaxSlotsPerThread * kMaxThreads;
+constexpr int kMaxWidth = 4096;
+constexpr int kFwdThreads = 512;         // wavefront_fwd: 1, 2 or 4 slots up to this
 constexpr int kWideThreads = 1024;       // wavefront_fwd_wide, the wide bwd
 constexpr int kExpMaxThreads = 256;      // exp: emission columns in shared memory
 constexpr int kExpWideThreads = 512;     // exp: columns in the caller's scratch
@@ -166,13 +188,14 @@ struct Trans {
 
 // Forward: cur[to] += term_c[from] * T[c, from, to].
 #define CPECAN_FWD_TERM(c, f, t) \
-  cur[t] += ((c) == 0 ? lo[f] : (c) == 1 ? mid[f] : up[f]) * T[((c) * S + (f)) * S + (t)];
+  cur[t] = madd<kExact>(cur[t], (c) == 0 ? lo[f] : (c) == 1 ? mid[f] : up[f], \
+                        T[((c) * S + (f)) * S + (t)]);
 // Backward: raw[from] += term_c[to] * T[c, from, to].
 #define CPECAN_BWD_TERM(c, f, t) \
   raw[f] += ((c) == 0 ? bx[t] : (c) == 1 ? bm[t] : by[t]) * T[((c) * S + (f)) * S + (t)];
 // Bridge vector: sum over match transitions of F_{k-2}[from] * t_m[from, match].
 #define CPECAN_BV_TERM(c, f, t) \
-  if ((c) == 1) acc += own2[f] * T[((c) * S + (f)) * S + (t)];
+  if ((c) == 1) acc = madd<kExact>(acc, own2[f], T[((c) * S + (f)) * S + (t)]);
 // Expectations, transition k of the list: n = neighbour * emission;
 // tacc[k] += n * B_k[to] / total; q[to] += n * T[c, from, to].
 #define CPECAN_EXP_TERM(c, f, t)                                       \
@@ -191,9 +214,18 @@ struct Trans {
   }
 #define CPECAN_COUNT(c, f, t) +1
 
+// acc + a * b: fused into one rounding, or (kExact) the product and the
+// sum each rounded, as the plain versions' separate tensor ops round them.
+template <bool kExact>
+__device__ __forceinline__ float madd(float acc, float a, float b) {
+  if constexpr (kExact) return __fadd_rn(acc, __fmul_rn(a, b));
+  return acc + a * b;
+}
+
 template <int S> struct Model;
 
 template <> struct Model<5> {
+  template <bool kExact>
   static __device__ __forceinline__ void fwd(float* cur, const float* lo, const float* mid,
                                              const float* up, const float* T) {
     constexpr int S = 5;
@@ -204,6 +236,7 @@ template <> struct Model<5> {
     constexpr int S = 5;
     CPECAN_NZ5(CPECAN_BWD_TERM)
   }
+  template <bool kExact>
   static __device__ __forceinline__ float bridge(const float* own2, const float* T) {
     constexpr int S = 5;
     float acc = 0.f;
@@ -224,6 +257,7 @@ template <> struct Model<5> {
 };
 
 template <> struct Model<3> {
+  template <bool kExact>
   static __device__ __forceinline__ void fwd(float* cur, const float* lo, const float* mid,
                                              const float* up, const float* T) {
     constexpr int S = 3;
@@ -234,6 +268,7 @@ template <> struct Model<3> {
     constexpr int S = 3;
     CPECAN_NZ3(CPECAN_BWD_TERM)
   }
+  template <bool kExact>
   static __device__ __forceinline__ float bridge(const float* own2, const float* T) {
     constexpr int S = 3;
     float acc = 0.f;
@@ -295,126 +330,413 @@ __device__ __forceinline__ float compute_sum(float v, float* red, int nt) {
   return s;
 }
 
-// kWindow: a window of a long pair (carries in and out, phase k0); the
-// batch path's instantiation (kWindow false) compiles none of that.
-template <int S, bool kWindow>
-__global__ void __launch_bounds__(kMaxThreads) wavefront_fwd(
-    const Trans tr, const float* __restrict__ ex, const float* __restrict__ ey,
-    const float* __restrict__ em, const int8_t* __restrict__ a, const int8_t* __restrict__ b1,
-    const int8_t* __restrict__ b0, const float* __restrict__ F0, const float* __restrict__ ci1,
-    const float* __restrict__ ci2, const float* __restrict__ cim, float* __restrict__ F,
-    float* __restrict__ bv, float* __restrict__ mf, float* __restrict__ co1,
-    float* __restrict__ co2, float* __restrict__ com, int R, int W, int k0) {
-  extern __shared__ float smem[];
-  __shared__ float red[32];
-  float* f1 = smem;          // F_{k-1} (S, W)
-  float* f2 = smem + S * W;  // F_{k-2} (S, W)
+// ------------------------------------------------------------ the rings
+//
+// A ring of streams: each stage holds one diagonal's rows of the streams
+// a kernel reads, each row one contiguous segment of its (B, R, ...)
+// tensor, filled by TMA bulk copies whose bytes land on the stage's
+// mbarrier. The four functions below and the three after them (bulk
+// copies the other way, from shared to device memory) are the only ones
+// that speak to the copy engine.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Arm `bar` (arrival count 1) for the copies of a fill.
+__device__ __forceinline__ void ring_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive on `bar` and expect `bytes` of copies in this phase.
+__device__ __forceinline__ void ring_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Bulk copy (TMA) of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, counted on `bar`.
+__device__ __forceinline__ void ring_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait for the phase of `bar` with this parity (its copies have landed).
+// A fill that never lands traps instead of hanging the card.
+__device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// Bulk copy (TMA) of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from shared memory into device memory, as one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory
+// (`all`: until they have also been written).
+__device__ __forceinline__ void bulk_wait(bool all) {
+  if (all)
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Asynchronous copy of one float from device into shared memory by this
+// thread; cp_async_wait waits for all of this thread's copies.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Make this thread's writes to shared memory visible to the copy engine.
+__device__ __forceinline__ void fence_smem_for_copies() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ------------------------------------------------------------ wavefront_fwd
+
+// Arguments of wavefront_fwd. F0 is the batch path's start row; a window
+// of a long pair passes its carry in (F_{k0-1}, F_{k0-2}, 1/m) instead,
+// and takes the carry out of its last row when co1 is given.
+struct FwdArgs {
+  const float* ex;
+  const float* ey;
+  const float* em;
+  const int8_t* a;
+  const int8_t* b1;
+  const int8_t* b0;
+  const float* F0;
+  const float* ci1;
+  const float* ci2;
+  const float* cim;
+  float* F;
+  float* bv;
+  float* mf;
+  float* co1;
+  float* co2;
+  float* com;
+  int k0;  // global diagonal of row 0
+};
+
+// Its ring stage holds one diagonal's ex, ey and em rows (W floats each).
+__host__ __device__ constexpr size_t fwd_stage_bytes(int W) {
+  return 3 * (size_t)W * sizeof(float);
+}
+
+// Fill `stage` with diagonal `row` (a row of the (B, R) grid): one thread.
+__device__ __forceinline__ void fwd_fill(char* stage, uint64_t* bar, const FwdArgs& p,
+                                         size_t row, int W) {
+  const uint32_t wb = (uint32_t)W * sizeof(float);
+  float* d = reinterpret_cast<float*>(stage);
+  ring_expect(bar, (uint32_t)fwd_stage_bytes(W));
+  ring_copy(d, p.ex + row * W, wb, bar);
+  ring_copy(d + W, p.ey + row * W, wb, bar);
+  ring_copy(d + 2 * W, p.em + row * W, wb, bar);
+}
+
+// The middle neighbour's shift in {-1, 0, 1} from a row's b1/b0 bytes.
+__device__ __forceinline__ int mid_shift(int8_t b1, int8_t b0) {
+  return b1 != 0 ? 1 : (b0 != 0 ? 0 : -1);
+}
+
+// Forward wavefront of one pair (this block's), low to high. The first
+// nt threads compute, each owning kSlots band slots j = tid + q * nt;
+// kRing adds one producer warp after them, which fills the ring (D
+// stages of ex, ey, em) and stores each row F_k that needs no rescale
+// from shared memory to F with one bulk copy, so the compute threads
+// issue no stores of F but those of rescaled rows. Shared memory: two
+// (S, W) rows that alternate by diagonal (diagonal k reads F_{k-1} from
+// one and writes F_k into the other), then the ring (kRing) or, in the
+// direct-load variant, one stage that each thread fills for its own
+// slots with asynchronous copies, the next row as soon as it has read
+// the current one.
+//
+// F_{k-2}, which the middle term and the bridge read, is never read from
+// shared memory: when a thread reads its neighbours F_{k-1}[j-1..j+1] on
+// diagonal k, it keeps in registers F_{k-1}[j + dm_{k+1}], the middle
+// operand of diagonal k+1 (row k+1's shift bytes arrived a diagonal
+// earlier), and the bridge of F_{k-1}[j]. No row is then written while
+// another thread may still read it, and one block barrier ends each
+// diagonal. A row that rescales (every kNormEvery-th) is stored raw, its
+// warps' partial maxima go to `red`, and the next diagonal, after the
+// barrier, forms the scale r, multiplies its reads of the row by r and
+// writes the rescaled row to F (the next rescaled row is kNormEvery
+// diagonals on, so one `red` serves). The arithmetic is fwd_reference's
+// operation for operation (each product and sum rounded apart, no fused
+// multiply-add), so F, bv and mf are its values bit for bit. Every
+// device-memory read is issued a diagonal before its use: a (row k+1)
+// and b1/b0 (row k+2) into registers, and the streams of row k+1 into
+// the stage (direct) or D rows ahead into the ring (kRing).
+template <int S, int kSlots, bool kRing, bool kWindow>
+__global__ void __launch_bounds__(kRing ? kFwdThreads + 32 : kSlots == 16 ? kMaxWidth / 16
+                                                                          : kFwdThreads)
+    wavefront_fwd(const Trans tr, const FwdArgs p, int R, int W, int D) {
+  extern __shared__ __align__(16) float fwd_smem[];  // 16-byte aligned for the copies
+  __shared__ float red[32];                          // per warp: a rescaled row's max
+  __shared__ uint64_t bars[kMaxStages];
+  float* rd = fwd_smem;          // F_{k-1}, raw: its scale rs is applied on read
+  float* wr = fwd_smem + S * W;  // F_k, raw
+  char* ring = reinterpret_cast<char*>(fwd_smem + 2 * S * W);
+  const size_t sbytes = fwd_stage_bytes(W);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int nt = blockDim.x - (kRing ? 32 : 0);  // compute threads
+  const int nw = nt >> 5;
   const float* T = tr.v;
+  const int i0 = kWindow ? 0 : 1;  // the first computed row
+  const int k0 = kWindow ? p.k0 : 0;
+  const size_t base = (size_t)b * R;  // this pair's row 0
 
-  float invm = 1.f;  // 1/m_{k-1}
-  if constexpr (kWindow) {
-    // a window: every row is computed from the carried F_{k0-1}, F_{k0-2}
-    for (int j = tid; j < S * W; j += nt) {
-      f1[j] = ci1[(size_t)b * S * W + j];
-      f2[j] = ci2[(size_t)b * S * W + j];
-    }
-    invm = cim[b];
-  } else {
-    // Diagonal 0 is the start row F0; F_{-1} is zero.
-    for (int j = tid; j < W; j += nt) {
-      for (int s = 0; s < S; ++s) {
-        const float v = F0[((size_t)b * S + s) * W + j];
-        f1[s * W + j] = v;
-        f2[s * W + j] = 0.f;
-        F[(((size_t)b * R) * S + s) * W + j] = v;
-      }
-      bv[(size_t)b * R * W + j] = 0.f;
-    }
-    if (tid == 0) mf[(size_t)b * R] = 0.f;
-  }
-  __syncthreads();
-
-  for (int i = kWindow ? 0 : 1; i < R; ++i) {
-    const size_t row = (size_t)b * R + i;
-    const bool norm = ((kWindow ? k0 : 0) + i) % kNormEvery == kNormEvery - 1;
-    // lower neighbour (consumes X) at j-1+a, upper (consumes Y) at j+a,
-    // middle (consumes XY, F_{k-2}) at j+dmid with dmid in {-1, 0, 1}
-    const bool sa = a[row] != 0;
-    const int dl = sa ? 0 : -1;
-    const int du = sa ? 1 : 0;
-    const int dm = b1[row] != 0 ? 1 : (b0[row] != 0 ? 0 : -1);
-
-    float cur[kMaxSlotsPerThread][S];
-    float lmax = 0.f;
-#pragma unroll
-    for (int q = 0; q < kMaxSlotsPerThread; ++q) {
-      const int j = tid + q * nt;
-#pragma unroll
-      for (int s = 0; s < S; ++s) cur[q][s] = 0.f;
-      if (j < W) {
-        const size_t o = row * W + j;
-        const float exj = ex[o];
-        const float eyj = ey[o];
-        const float emi = em[o] * invm;
-        float lo[S], mid[S], up[S], own2[S];
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          lo[s] = nb(f1 + s * W, j + dl, W) * exj;
-          up[s] = nb(f1 + s * W, j + du, W) * eyj;
-          mid[s] = nb(f2 + s * W, j + dm, W) * emi;
-          own2[s] = f2[s * W + j];
-        }
-        Model<S>::fwd(cur[q], lo, mid, up, T);
-        // bridgevec[k] = (sum_f F_{k-2}[f] * t_m[f, match]) / m_{k-1}
-        bv[o] = Model<S>::bridge(own2, T) * invm;
-        if (norm) {
-#pragma unroll
-          for (int s = 0; s < S; ++s) lmax = fmaxf(lmax, cur[q][s]);
-        }
-      }
-    }
-
-    float r = 1.f;
-    if (norm) {
-      float m = block_max(lmax, red);
-      m = m > 0.f ? m : 1.f;
-      r = 1.f / m;
-      if (tid == 0) mf[row] = logf(m);
-    } else if (tid == 0) {
-      mf[row] = 0.f;
-    }
-    __syncthreads();  // every read of f1/f2 for this diagonal is done
-
-    // F_k replaces F_{k-2} in shared memory; then the buffers swap roles.
-#pragma unroll
-    for (int q = 0; q < kMaxSlotsPerThread; ++q) {
-      const int j = tid + q * nt;
-      if (j < W) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float v = cur[q][s] * r;
-          f2[s * W + j] = v;
-          F[(row * S + s) * W + j] = v;
-        }
-      }
+  if (kRing && tid >= nt) {
+    // The producer warp: stage s starts with row i0 + s; once the block
+    // barrier that ends row i has freed its stage, one thread refills it
+    // with row i + D and stores row i (unless it awaits its rescale),
+    // and waits for that store to have read its row before the next
+    // barrier (row i + 2 overwrites it). It meets the compute threads
+    // only at the block barriers (one before the loop, one per row).
+    const bool lead = tid == nt;
+    if (lead) {
+      for (int s = 0; s < D; ++s) ring_init(&bars[s]);
+      for (int s = 0; s < D && i0 + s < R; ++s)
+        fwd_fill(ring + s * sbytes, &bars[s], p, base + i0 + s, W);
     }
     __syncthreads();
-    float* tmp = f1;
-    f1 = f2;
-    f2 = tmp;
-    invm = r;
+    int st = 0;
+    for (int i = i0; i < R; ++i) {
+      if (lead) bulk_wait(false);
+      __syncthreads();
+      if (lead) {
+        if (i + D < R) fwd_fill(ring + st * sbytes, &bars[st], p, base + i + D, W);
+        if ((k0 + i) % kNormEvery != kNormEvery - 1)
+          bulk_store(p.F + (base + i) * S * W, fwd_smem + ((i - i0 + 1) & 1) * S * W,
+                     (uint32_t)(S * W * sizeof(float)));
+      }
+      if (++st == D) st = 0;
+    }
+    if (lead) bulk_wait(true);
+    return;
   }
 
-  // carry out of the last row (the loop's final barrier precedes)
-  if (kWindow && co1 != nullptr) {
-    for (int j = tid; j < S * W; j += nt) {
-      co1[(size_t)b * S * W + j] = f1[j];
-      co2[(size_t)b * S * W + j] = f2[j];
+  float mid[kSlots][S];  // F_{k-2}[j + dm_k], the middle operands of row k
+  float brg[kSlots];     // sum over match transitions of F_{k-2}[j] * t_m
+  if constexpr (kWindow) {
+    // every row is computed from the carried F_{k0-1}, F_{k0-2}
+    const float* c1 = p.ci1 + (size_t)b * S * W;
+    const float* c2 = p.ci2 + (size_t)b * S * W;
+    for (int j = tid; j < S * W; j += nt) rd[j] = c1[j];
+    const int dm = mid_shift(p.b1[base], p.b0[base]);
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      float own[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        mid[q][s] = j < W ? nb(c2 + s * W, j + dm, W) : 0.f;
+        own[s] = j < W ? c2[s * W + j] : 0.f;
+      }
+      brg[q] = Model<S>::template bridge<true>(own, T);
     }
-    if (tid == 0) com[b] = invm;
+  } else {
+    // Row 0 is the start row F0; F_{-1} is zero.
+    for (int j = tid; j < W; j += nt) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float v = p.F0[((size_t)b * S + s) * W + j];
+        rd[s * W + j] = v;
+        p.F[(base * S + s) * W + j] = v;
+      }
+      p.bv[base * W + j] = 0.f;
+    }
+    if (tid == 0) p.mf[base] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      brg[q] = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) mid[q][s] = 0.f;
+    }
+  }
+  // Read a diagonal ahead: a of row i, b1/b0 of row i+1, and (direct
+  // loads) the thread's streams of row i into the stage.
+  int8_t pa = 0, pb1 = 0, pb0 = 0;
+  float* stage = reinterpret_cast<float*>(ring);  // direct loads: ex, ey, em (W each)
+  if (i0 < R) {
+    pa = p.a[base + i0];
+    if (i0 + 1 < R) pb1 = p.b1[base + i0 + 1], pb0 = p.b0[base + i0 + 1];
+    if constexpr (!kRing) {
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) {
+        const int j = tid + q * nt;
+        const size_t o = (base + i0) * W + j;
+        if (j < W) {
+          cp_async4(stage + j, p.ex + o);
+          cp_async4(stage + W + j, p.ey + o);
+          cp_async4(stage + 2 * W + j, p.em + o);
+        }
+      }
+    }
+  }
+  float invm = kWindow ? p.cim[b] : 1.f;  // 1/m_{k-1}
+  float rs = 1.f;                         // the scale of rd's row
+  __syncthreads();
+
+  int st = 0;                            // the ring stage of row i
+  uint32_t parity = 0;                   // the phase of that stage's barrier
+  int phase = (k0 + i0) % kNormEvery;    // of row i in the rescale schedule
+  for (int i = i0; i < R; ++i) {
+    const size_t row = base + i;
+    const bool norm = phase == kNormEvery - 1;
+    const bool rescaled = i > i0 && phase == 0;  // row i-1 rescales
+    // The reads of a diagonal ago, and those of the next diagonal.
+    const bool sa = pa != 0;
+    const int dmn = mid_shift(pb1, pb0);  // the middle shift of row i+1
+    if (i + 1 < R) pa = p.a[row + 1];
+    if (i + 2 < R) pb1 = p.b1[row + 2], pb0 = p.b0[row + 2];
+    const float* gx = stage;  // this row's ex, ey, em
+    if constexpr (kRing) {
+      ring_wait(&bars[st], parity);
+      gx = reinterpret_cast<const float*>(ring + st * sbytes);
+    } else {
+      cp_async_wait();
+    }
+    // row i-1's rescale, deferred to here
+    if (i > i0) {
+      rs = 1.f;
+      if (rescaled) {
+        float m = red[0];
+        for (int k = 1; k < nw; ++k) m = fmaxf(m, red[k]);
+        m = m > 0.f ? m : 1.f;
+        rs = 1.f / m;
+        if (tid == 0) p.mf[row - 1] = logf(m);
+      }
+      invm = rs;
+    }
+
+    float lmax = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      if (j < W) {
+        // F_{k-1} at j-1, j, j+1, each state: the lower (consumes X) and
+        // upper (consumes Y) neighbours are j-1+a and j+a, the next
+        // diagonal's middle one j+dm_{k+1}
+        float fl[S], fc[S], fr[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          fl[s] = nb(rd + s * W, j - 1, W);
+          fc[s] = rd[s * W + j];
+          fr[s] = nb(rd + s * W, j + 1, W);
+        }
+        if (rescaled) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            fl[s] *= rs;
+            fc[s] *= rs;
+            fr[s] *= rs;
+            p.F[((row - 1) * S + s) * W + j] = fc[s];
+          }
+        }
+        const float exj = gx[j];
+        const float eyj = gx[W + j];
+        const float emi = gx[2 * W + j] * invm;
+        float lo[S], mi[S], up[S], cur[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          lo[s] = (sa ? fc[s] : fl[s]) * exj;
+          up[s] = (sa ? fr[s] : fc[s]) * eyj;
+          mi[s] = mid[q][s] * emi;
+          cur[s] = 0.f;
+        }
+        Model<S>::template fwd<true>(cur, lo, mi, up, T);
+        // bridgevec[k] = (sum_f F_{k-2}[f] * t_m[f, match]) / m_{k-1}
+        p.bv[row * W + j] = brg[q] * invm;
+        if (!kRing && i + 1 < R) {  // this slot's streams of the next row
+          const size_t o = (row + 1) * W + j;
+          cp_async4(stage + j, p.ex + o);
+          cp_async4(stage + W + j, p.ey + o);
+          cp_async4(stage + 2 * W + j, p.em + o);
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) mid[q][s] = dmn > 0 ? fr[s] : dmn == 0 ? fc[s] : fl[s];
+        brg[q] = Model<S>::template bridge<true>(fc, T);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          wr[s * W + j] = cur[s];
+          if (norm)
+            lmax = fmaxf(lmax, cur[s]);
+          else if (!kRing)
+            p.F[(row * S + s) * W + j] = cur[s];
+        }
+      }
+    }
+    if constexpr (kRing) fence_smem_for_copies();  // the producer stores wr
+    if (norm) {
+      for (int o = 16; o > 0; o >>= 1) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      if ((tid & 31) == 0) red[tid >> 5] = lmax;
+    } else if (tid == 0) {
+      p.mf[row] = 0.f;
+    }
+    __syncthreads();
+    float* tmp = rd;
+    rd = wr;
+    wr = tmp;
+    phase = norm ? 0 : phase + 1;
+    if constexpr (kRing) {
+      if (++st == D) {
+        st = 0;
+        parity ^= 1u;
+      }
+    }
+  }
+
+  // The last row's rescale and the carry out (the loop's final barrier
+  // precedes): rd holds F_{R-1} raw, wr F_{R-2} raw with the scale rs.
+  if (R - 1 < i0) return;
+  float r = 1.f;
+  if ((k0 + R - 1) % kNormEvery == kNormEvery - 1) {
+    float m = red[0];
+    for (int k = 1; k < nw; ++k) m = fmaxf(m, red[k]);
+    m = m > 0.f ? m : 1.f;
+    r = 1.f / m;
+    if (tid == 0) p.mf[base + R - 1] = logf(m);
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const int j = tid + q * nt;
+      if (j < W) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) p.F[((base + R - 1) * S + s) * W + j] = rd[s * W + j] * r;
+      }
+    }
+  }
+  if (kWindow && p.co1 != nullptr) {
+    for (int j = tid; j < S * W; j += nt) {
+      p.co1[(size_t)b * S * W + j] = rd[j] * r;
+      p.co2[(size_t)b * S * W + j] = wr[j] * rs;
+    }
+    if (tid == 0) p.com[b] = r;
   }
 }
 
@@ -491,55 +813,8 @@ struct BwdArgs {
 
 // ------------------------------------------------------------ wavefront_bwd
 //
-// The ring of streams: stage k holds one diagonal's efx, efy, efm, em, bv
-// (W floats each), F (S, W) and pm (W bytes), each one contiguous segment
-// of its (B, R, ...) tensor, filled by TMA bulk copies whose bytes land on
-// the stage's mbarrier. The four functions below are the only ones that
-// speak to the copy engine.
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Arm `bar` (arrival count 1) for the copies of a fill.
-__device__ __forceinline__ void ring_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// Arrive on `bar` and expect `bytes` of copies in this phase.
-__device__ __forceinline__ void ring_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Bulk copy (TMA) of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from device memory into shared memory, counted on `bar`.
-__device__ __forceinline__ void ring_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Wait for the phase of `bar` with this parity (its copies have landed).
-// A fill that never lands traps instead of hanging the card.
-__device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t n = 0; !done; ++n) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (n == (1u << 26)) __trap();
-  }
-}
+// Its ring stage holds one diagonal's efx, efy, efm, em, bv (W floats
+// each), F (S, W) and pm (W bytes).
 
 // Bytes of one ring stage.
 __host__ __device__ constexpr size_t stage_bytes(int S, int W) {
@@ -1269,9 +1544,9 @@ __global__ void __launch_bounds__(kWideThreads) wavefront_fwd_wide(
         own2[s] = f2 ? f2[s * W + j] : 0.f;
         cur[s] = 0.f;
       }
-      Model<S>::fwd(cur, lo, mid, up, T);
+      Model<S>::template fwd<false>(cur, lo, mid, up, T);
       // bridgevec[k] = (sum_f F_{k-2}[f] * t_m[f, match]) / m_{k-1}
-      bv[o] = Model<S>::bridge(own2, T) * invm;
+      bv[o] = Model<S>::template bridge<false>(own2, T) * invm;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         out[s * W + j] = cur[s];
@@ -1519,30 +1794,66 @@ __global__ void __launch_bounds__(kExp ? kExpWideThreads : kWideThreads)
   }
 }
 
-int threads_for(int W) {
-  const int nt = (W + 31) / 32 * 32;
-  return nt < kMaxThreads ? nt : kMaxThreads;
-}
-
 Trans load_trans(int S, const float* t_host) {
   Trans tr = {};
   for (int k = 0; k < 3 * S * S; ++k) tr.v[k] = t_host[k];
   return tr;
 }
 
+// A kernel's launch at (S, W): threads, band slots per compute thread,
+// ring depth (0: the direct-load variant) and dynamic shared memory.
+struct Plan {
+  int threads, slots, depth;
+  size_t smem;
+};
+
+// wavefront_fwd's launch at (S, W): 1, 2 or 4 slots per compute thread,
+// the fewest that cover W with at most kFwdThreads threads (fewer, fuller
+// threads make the barrier cheaper, up to the registers that a slot's
+// operands take), else 16 on at most kMaxWidth / 16; a ring of D stages
+// (the most that fit beside the two rows, at most kMaxStages) where at
+// least two fit, the slots are at most 4, the streams and F start on the
+// 16-byte grid (`aligned`) and W % 4 == 0 (bulk copies move 16-byte
+// multiples); the direct-load variant otherwise.
+Plan fwd_plan(int S, int W, bool aligned) {
+  const size_t rows = 2 * (size_t)S * W * sizeof(float);
+  const int slots = W <= kFwdThreads       ? 1
+                    : W <= 2 * kFwdThreads ? 2
+                    : W <= 4 * kFwdThreads ? 4
+                                           : 16;
+  const int compute = ((W + slots - 1) / slots + 31) / 32 * 32;
+  const size_t fit = (kSmemPerBlock - kStaticSmem - rows) / fwd_stage_bytes(W);
+  int depth = (int)std::min<size_t>(kMaxStages, fit);
+  if (!aligned || W % 4 != 0 || depth < 2 || slots > 4) depth = 0;
+  // the direct-load variant's one stage
+  return {compute + (depth ? 32 : 0), slots, depth, rows + std::max(depth, 1) * fwd_stage_bytes(W)};
+}
+
+using FwdKernel = void (*)(Trans, FwdArgs, int, int, int);
+
+template <int S, int kSlots, bool kRing>
+FwdKernel fwd_kernel(bool window) {
+  return window ? wavefront_fwd<S, kSlots, kRing, true> : wavefront_fwd<S, kSlots, kRing, false>;
+}
+
 template <int S>
-int launch_fwd(const float* t_host, const float* ex, const float* ey, const float* em,
-               const int8_t* a, const int8_t* b1, const int8_t* b0, const float* F0,
-               const float* ci1, const float* ci2, const float* cim, float* F, float* bv,
-               float* mf, float* co1, float* co2, float* com, int B, int R, int W, int k0,
-               cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)S * W * sizeof(float);
-  auto kernel = ci1 != nullptr ? wavefront_fwd<S, true> : wavefront_fwd<S, false>;
+int launch_fwd(const float* t_host, const FwdArgs& p, int B, int R, int W, cudaStream_t stream) {
+  bool aligned = true;  // the ring's copies: the streams and F on the 16-byte grid
+  for (const void* q : {(const void*)p.ex, (const void*)p.ey, (const void*)p.em, (const void*)p.F})
+    aligned = aligned && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const Plan pl = fwd_plan(S, W, aligned);
+  const bool window = p.ci1 != nullptr;
+  FwdKernel kernel = pl.depth > 0 ? (pl.slots == 1   ? fwd_kernel<S, 1, true>(window)
+                                     : pl.slots == 2 ? fwd_kernel<S, 2, true>(window)
+                                                     : fwd_kernel<S, 4, true>(window))
+                                  : (pl.slots == 1   ? fwd_kernel<S, 1, false>(window)
+                                     : pl.slots == 2 ? fwd_kernel<S, 2, false>(window)
+                                     : pl.slots == 4 ? fwd_kernel<S, 4, false>(window)
+                                                     : fwd_kernel<S, 16, false>(window));
   cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<B, threads_for(W), smem, stream>>>(load_trans(S, t_host), ex, ey, em, a, b1, b0, F0,
-                                              ci1, ci2, cim, F, bv, mf, co1, co2, com, R, W, k0);
+  kernel<<<B, pl.threads, pl.smem, stream>>>(load_trans(S, t_host), p, R, W, pl.depth);
   return (int)cudaGetLastError();
 }
 
@@ -1555,12 +1866,8 @@ int launch_fwd(const float* t_host, const float* ex, const float* ey, const floa
 // at most kRingThreads compute threads (ring: fewer, fuller threads make
 // the block reduction and barriers cheaper, with the registers of a
 // 512-thread launch) or kMaxThreads (direct loads).
-struct BwdPlan {
-  int threads, slots, depth;
-  size_t smem;
-};
 
-BwdPlan bwd_plan(int S, int W, bool aligned) {
+Plan bwd_plan(int S, int W, bool aligned) {
   const size_t carries = (2 * (size_t)S + 1) * W * sizeof(float);
   const size_t fit = (kSmemPerBlock - kStaticSmem - carries) / stage_bytes(S, W);
   int depth = (int)std::min<size_t>(kMaxStages, fit);
@@ -1588,7 +1895,7 @@ BwdKernel bwd_kernel(bool window) {
 
 template <int S>
 int launch_bwd(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaStream_t stream) {
-  const BwdPlan pl = bwd_plan(S, W, ring_aligned(p));
+  const Plan pl = bwd_plan(S, W, ring_aligned(p));
   const bool window = p.ci_b1 != nullptr;
   const bool ring = pl.depth > 0;
   BwdKernel kernel = pl.slots == 1   ? (ring ? bwd_kernel<S, 1, true>(window)
@@ -1611,7 +1918,7 @@ int launch_bwd(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaS
 // are the next two stages) where that many fit beside the carries and the
 // columns, W % 16 == 0, the streams sit on the 16-byte grid and the slots
 // are at most 4; the direct-load variant otherwise.
-BwdPlan exp_plan(int S, int W, bool aligned, bool scratch) {
+Plan exp_plan(int S, int W, bool aligned, bool scratch) {
   const size_t carries = (2 * (size_t)S + 1) * W * sizeof(float);
   const int cap = scratch ? kExpWideThreads : kExpMaxThreads;
   const int slots = W <= cap ? 1 : W <= 2 * cap ? 2 : W <= 4 * cap ? 4 : 8;
@@ -1640,7 +1947,7 @@ BwdKernel exp_kernel(bool window) {
 
 template <int S>
 int launch_exp(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaStream_t stream) {
-  const BwdPlan pl = exp_plan(S, W, exp_aligned(p), p.eacc != nullptr);
+  const Plan pl = exp_plan(S, W, exp_aligned(p), p.eacc != nullptr);
   const bool window = p.ci_b1 != nullptr;
   BwdKernel kernel = pl.depth > 0 ? (pl.slots == 1   ? exp_kernel<S, 1, true>(window)
                                      : pl.slots == 2 ? exp_kernel<S, 2, true>(window)
@@ -1707,10 +2014,12 @@ int fwd_entry(bool wide, int S, const float* t_host, const float* ex, const floa
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto launch = wide ? (S == 5 ? launch_fwd_wide<5> : launch_fwd_wide<3>)
-                     : (S == 5 ? launch_fwd<5> : launch_fwd<3>);
-  return launch(t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2, com, B, R,
-                W, k0, st);
+  if (wide)
+    return (S == 5 ? launch_fwd_wide<5> : launch_fwd_wide<3>)(
+        t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2, com, B, R, W, k0,
+        st);
+  const FwdArgs p = {ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2, com, k0};
+  return (S == 5 ? launch_fwd<5> : launch_fwd<3>)(t_host, p, B, R, W, st);
 }
 
 int bwd_entry(bool wide, int S, const float* t_host, const float* efx, const float* efy,
@@ -1866,20 +2175,27 @@ int cpecan_wavefront_exp_wide(int S, const float* t_host, const float* efx, cons
                    co, scratch, B, R, W, k0, stream);
 }
 
-// The launch plans of wavefront_bwd and wavefront_exp at (S, W) for
-// streams on the 16-byte grid (aligned != 0) or off it: out = {threads,
-// band slots per compute thread, ring depth (0: direct loads), dynamic
-// shared memory bytes}.
+// The launch plans of wavefront_fwd, wavefront_bwd and wavefront_exp at
+// (S, W) for streams on the 16-byte grid (aligned != 0) or off it: out =
+// {threads, band slots per compute thread, ring depth (0: direct loads),
+// dynamic shared memory bytes}.
+int cpecan_wavefront_fwd_plan(int S, int W, int aligned, int* out) {
+  if (bad_shape(S, 1, 1, W)) return (int)cudaErrorInvalidValue;
+  const Plan pl = fwd_plan(S, W, aligned != 0);
+  out[0] = pl.threads, out[1] = pl.slots, out[2] = pl.depth, out[3] = (int)pl.smem;
+  return 0;
+}
+
 int cpecan_wavefront_bwd_plan(int S, int W, int aligned, int* out) {
   if (bad_shape(S, 1, 1, W)) return (int)cudaErrorInvalidValue;
-  const BwdPlan pl = bwd_plan(S, W, aligned != 0);
+  const Plan pl = bwd_plan(S, W, aligned != 0);
   out[0] = pl.threads, out[1] = pl.slots, out[2] = pl.depth, out[3] = (int)pl.smem;
   return 0;
 }
 
 int cpecan_wavefront_exp_plan(int S, int W, int aligned, int* out) {
   if (bad_shape(S, 1, 1, W)) return (int)cudaErrorInvalidValue;
-  const BwdPlan pl = exp_plan(S, W, aligned != 0, W > kExpSharedWidth);
+  const Plan pl = exp_plan(S, W, aligned != 0, W > kExpSharedWidth);
   out[0] = pl.threads, out[1] = pl.slots, out[2] = pl.depth, out[3] = (int)pl.smem;
   return 0;
 }

@@ -637,7 +637,7 @@ def kernel_route(kernel: str, device, W: int):
     CPU (the wrapper runs the plain version), else the shared-memory
     variant's entry point up to MAX_KERNEL_WIDTH and the wide variant's
     above. The shared-memory entry points pick their own launch plan
-    (``bwd_plan``, ``exp_plan``)."""
+    (``fwd_plan``, ``bwd_plan``, ``exp_plan``)."""
     if device.type == "cpu":
         return None
     wide = "_wide" if W > MAX_KERNEL_WIDTH else ""
@@ -786,6 +786,16 @@ def _plan(kernel: str, S: int, W: int, aligned: bool) -> dict:
     if err != 0:
         raise ValueError(f"{kernel}_plan: no launch for S={S}, W={W}")
     return dict(zip(("threads", "slots", "depth", "smem"), out))
+
+
+def fwd_plan(S: int, W: int, aligned: bool = True) -> dict:
+    """The launch ``wavefront_fwd`` takes at (S, W) <= MAX_KERNEL_WIDTH,
+    for streams that start on 16-byte boundaries (``aligned``) or not:
+    threads, band slots per compute thread, the depth of its ring of
+    streams in shared memory (0: the variant that loads them directly)
+    and its dynamic shared memory in bytes. Builds the kernel library on
+    first use."""
+    return _plan("fwd", S, W, aligned)
 
 
 def bwd_plan(S: int, W: int, aligned: bool = True) -> dict:

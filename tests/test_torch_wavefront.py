@@ -415,6 +415,109 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda_device):
 
 
 # --------------------------------------------------------------------------
+# On the card: wavefront_fwd in each of its launch plans
+# --------------------------------------------------------------------------
+
+# 1, 2 and 4 slots per thread on the ring, and 16 slots (W > 2048) with the
+# direct loads
+FWD_WIDTHS = (32, 128, 384, 544, 1024, 1664, 2048, 4096)
+# wavefront_fwd's (slots, ring depth) per W, S = 5 and 3, for
+# 16-byte-aligned streams
+FWD_PLANS = {32: (1, 4), 128: (1, 4), 384: (1, 4), 544: (2, 4),
+             1024: (2, 4), 1664: (4, 4), 2048: (4, 4), 4096: (16, 0)}
+
+
+def _fwd_outputs(out, window):
+    """fwd's outputs as named tensors: F, bv, mf and the carry out."""
+    names = ["F", "bv", "mf"] + ([f"carry {i}" for i in range(3)]
+                                 if window else [])
+    flat = list(out[:3]) + (list(out[3]) if window else [])
+    return dict(zip(names, flat))
+
+
+def assert_fwd_equal(got, want, window, what):
+    """wavefront_fwd rounds each product and sum as fwd_reference does, so
+    F, bv, mf and the carry out are its values bit for bit."""
+    for key, w in _fwd_outputs(want, window).items():
+        g = _fwd_outputs(got, window)[key]
+        assert torch.isfinite(g).all(), (what, key)
+        assert torch.equal(g, w), (
+            f"{what} {key}: max abs diff {float((g - w).abs().max()):.3g}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("W", FWD_WIDTHS)
+@pytest.mark.parametrize("sm_factory", [state_machine5, state_machine3])
+def test_fwd_kernel_launch_plans_on_card(cuda_device, sm_factory, W, window):
+    """wavefront_fwd against fwd_reference on the same card tensors at
+    widths that run each launch plan, as a batch and as a window with a
+    carry in and k0 = 6 (67 diagonals: the ring wraps many times, and
+    rows of every rescale phase)."""
+    hmm = PairHMM.from_state_machine(sm_factory())
+    S = hmm.state_number
+    plan = fb_wavefront.fwd_plan(S, W)
+    assert (plan["slots"], plan["depth"]) == FWD_PLANS[W]
+    args, kw = random_fwd_inputs(np.random.default_rng(W + S), hmm, 3, 67, W,
+                                 window)
+    args, kw = _on(cuda_device, args, kw)
+    fb_wavefront.reset_launch_counts()
+    got = fb_wavefront.fwd(*args, **kw)
+    want = fb_wavefront.fwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert fb_wavefront.LAUNCHES["fwd"] == 1
+    assert_fwd_equal(got, want, window, f"S={S} W={W} window={window}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 544, 1664])
+def test_fwd_kernel_off_grid_streams_on_card(cuda_device, W):
+    """A stream off the 16-byte grid (here ex, one float in) cannot feed
+    the ring's bulk copies: the launch runs the direct-load variant (1, 2
+    and 4 slots here), and the outputs still equal fwd_reference's."""
+    hmm = PairHMM.from_state_machine(state_machine5())
+    assert fb_wavefront.fwd_plan(5, W)["depth"] >= 2
+    assert fb_wavefront.fwd_plan(5, W, aligned=False)["depth"] == 0
+    args, kw = random_fwd_inputs(np.random.default_rng(W + 9), hmm, 2, 37, W,
+                                 window=True)
+    args, kw = _on(cuda_device, args, kw)
+    ex = args[1]
+    buf = torch.empty(ex.numel() + 4, dtype=ex.dtype, device=cuda_device)
+    args[1] = buf[1:1 + ex.numel()].view(ex.shape)
+    args[1].copy_(ex)
+    got = fb_wavefront.fwd(*args, **kw)
+    want = fb_wavefront.fwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert_fwd_equal(got, want, True, f"off-grid ex W={W}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 1664, 4096])
+@pytest.mark.parametrize("sm_factory", [state_machine5, state_machine3])
+def test_fwd_kernel_window_chain_on_card(cuda_device, sm_factory, W):
+    """Two windows of wavefront_fwd, the second started from the first's
+    carry out at k0 + 29, give what one window over both gives, bit for
+    bit: F, bv, mf and the carry out of the last row."""
+    hmm = PairHMM.from_state_machine(sm_factory())
+    args, kw = random_fwd_inputs(np.random.default_rng(W + 3), hmm, 2, 53, W,
+                                 window=True)
+    args, kw = _on(cuda_device, args, kw)
+    whole = fb_wavefront.fwd(*args, **kw)
+    cut = 29
+    part = lambda lo, hi: [args[0]] + [x[:, lo:hi].contiguous()
+                                       for x in args[1:7]] + args[7:]
+    first = fb_wavefront.fwd(*part(0, cut), carry=kw["carry"], k0=kw["k0"])
+    second = fb_wavefront.fwd(*part(cut, None), carry=first[3],
+                              k0=kw["k0"] + cut)
+    torch.cuda.synchronize()
+    joined = (*(torch.cat([a, b], dim=1) for a, b in zip(first[:3],
+                                                         second[:3])),
+              second[3])
+    assert_fwd_equal(joined, whole, True,
+                     f"S={hmm.state_number} W={W} two windows")
+
+
+# --------------------------------------------------------------------------
 # On the card: wavefront_bwd in each of its launch variants
 # --------------------------------------------------------------------------
 
