@@ -65,7 +65,16 @@ Phases (any failure raises, so the exit code is non-zero):
      one EM iteration (exact engine) with --splitMatrixBiggerThanThis
      5000, launch counts reset before and read after each, the widest
      window launch of each site against its plain version, and the
-     record's pairs against the plain versions' on the same card tensors.
+     record's pairs against the plain versions' on the same card tensors;
+ 13. MSA and align: make_alignment (2 spanning trees, the native
+     progressive merge) on BASELINE config #5's 100 evolved 1 kb
+     fragments (bench.py:570-575's generator), with its stage split and
+     fwd/bwd launch counts reset before and read after, then once more
+     under torch.profiler for its device busy share; the same call on
+     the first 10 fragments on the card and on the CPU (equal columns and
+     kept pairs, near-ties counted); the align CLI on 8 x 32 evolved 1 kb
+     sequences (256 pairs), pairs/s, and the first 2 x 4 pairs again with
+     --device cpu (identical cigars).
 
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Imports no jax and nothing of cpecan_tpu
@@ -78,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import random
 import re
 import statistics
 import subprocess
@@ -1926,6 +1936,254 @@ def phase_wide(card, tmp, sites):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ MSA and align
+
+
+MSA_SEQS, MSA_LEN, MSA_COMPARE = 100, 1000, 10
+ALIGN_TARGETS, ALIGN_QUERIES = 8, 32
+ALIGN_COMPARE = (2, 4)  # targets x queries run again on the CPU
+# kept MSA pairs are AMAP-reweighted, prob - gapGamma * (indel_x +
+# indel_y), each indel term 1e7 minus its row's (column's) posteriors: a
+# kept pair moves by its own error (<= 100) plus 0.5 x those of up to 9
+# pairs in its row and 9 in its column
+KEPT_TOL = 1000
+
+
+def _msa_frags(n):
+    """BASELINE config #5's inputs as bench.py:570-575 makes them: one
+    random root and n evolved copies, each with its own end ids (so every
+    pair aligns with ragged ends)."""
+    from cpecan_tpu_torch.msa.aligner import SeqFrag
+    from cpecan_tpu_torch.utils import symbols
+
+    rng = random.Random(5)
+    root = symbols.get_random_sequence(MSA_LEN, rng).upper()
+    return [SeqFrag(symbols.evolve_sequence(root, rng).upper(), i, i + 1)
+            for i in range(n)]
+
+
+def _msa(frags, device):
+    """make_alignment at bench.py's MSA settings (bench.py:581-584)."""
+    from cpecan_tpu_torch.config import PairwiseAlignmentParameters
+    from cpecan_tpu_torch.models.state_machine import state_machine5
+    from cpecan_tpu_torch.msa import aligner
+
+    return aligner.make_alignment(
+        state_machine5(), frags, spanning_trees=2,
+        max_pairs_to_consider=10_000_000, use_progressive_merging=True,
+        match_gamma=0.0, p=PairwiseAlignmentParameters(), seed=0,
+        device=device)
+
+
+def _check_msa(ma, frags):
+    """Every position in exactly one column, no column with two positions
+    of one sequence, every kept pair inside one column, n-1 seed pairs and
+    at most n more."""
+    cols = ma.column_list()
+    if sum(len(c) for c in cols) != sum(f.length for f in frags):
+        raise AssertionError("the columns do not partition the positions")
+    if any(len({s for s, _ in c}) != len(c) for c in cols):
+        raise AssertionError("a column holds two positions of one sequence")
+    ap, store = ma.aligned_pairs, ma.columns
+    if len(ap) == 0 or any(
+            store.find_pos(int(q["seq1"]), int(q["pos1"]))
+            != store.find_pos(int(q["seq2"]), int(q["pos2"])) for q in ap):
+        raise AssertionError("a kept pair spans two columns")
+    n = len(frags)
+    if not n - 1 <= len(ma.chosen_pairwise_alignments) <= 2 * n - 1:
+        raise AssertionError(
+            f"{len(ma.chosen_pairwise_alignments)} pairwise alignments")
+    return cols
+
+
+def _stages(snap):
+    return ", ".join(f"{k} {v['seconds']:.2f} s ({v['calls']} calls)"
+                     for k, v in sorted(snap["stages"].items()))
+
+
+def _msa_card_cpu(frags):
+    """make_alignment on the card and on the CPU (the kernels' plain
+    versions). The chosen pairwise alignments must be equal, and their
+    posteriors, recomputed on both, must agree as phase 5's do (pair sets
+    equal but for threshold flips, within 100/1e7). Columns and kept pairs
+    must be equal; kept pairs are AMAP-reweighted, so each may move by its
+    own posterior's error plus gapGamma times those of its row and column
+    (KEPT_TOL). A column may differ only as a near-tie, where the merge
+    met weights within that noise: then the kept pairs' summed posteriors
+    must agree within 1e-5 relative. Returns the near-tie count."""
+    from cpecan_tpu_torch.align import batch
+    from cpecan_tpu_torch.align.anchors import get_anchors
+    from cpecan_tpu_torch.config import PairwiseAlignmentParameters
+    from cpecan_tpu_torch.models.state_machine import state_machine5
+
+    card, cpu = _msa(frags, "cuda"), _msa(frags, "cpu")
+    _check_msa(cpu, frags)
+    if ([c[1:] for c in card.chosen_pairwise_alignments]
+            != [c[1:] for c in cpu.chosen_pairwise_alignments]):
+        raise AssertionError("card and CPU chose other pairwise alignments")
+    p = PairwiseAlignmentParameters()
+    jobs = [(frags[i].seq, frags[j].seq,
+             get_anchors(frags[i].seq, frags[j].seq, p),
+             frags[i].left_end_id != frags[j].left_end_id,
+             frags[i].right_end_id != frags[j].right_end_id)
+            for _, i, j in card.chosen_pairwise_alignments]
+    got = [batch.get_aligned_pairs_batch(state_machine5(), jobs, p,
+                                         device=dev)
+           for dev in ("cuda", "cpu")]
+    raw = [_same_pairs(x, y, p.threshold) for x, y in zip(*got)]
+    worst = max(w for _, _, w in raw)
+    flips = sum(f for _, f, _ in raw)
+    if worst > 100:
+        raise AssertionError(f"MSA posteriors differ by {worst} > 100")
+    a, b = card.column_list(), cpu.column_list()
+    near_ties = len(a) - len(set(map(tuple, a)) & set(map(tuple, b)))
+    ka, kb = card.aligned_pairs, cpu.aligned_pairs
+    kept = "n/a (near-ties)"
+    if near_ties:
+        sa, sb = int(ka["prob"].sum()), int(kb["prob"].sum())
+        if abs(sa - sb) > 1e-5 * max(sb, 1):
+            raise AssertionError(f"kept posteriors {sa} (card) vs {sb} (CPU)")
+    else:
+        for k in ("seq1", "pos1", "seq2", "pos2"):
+            if not np.array_equal(ka[k], kb[k]):
+                raise AssertionError("card and CPU kept other pairs")
+        kept = int(np.abs(ka["prob"] - kb["prob"]).max())
+        if kept > KEPT_TOL and not flips:
+            raise AssertionError(f"kept pairs differ by {kept} > {KEPT_TOL}")
+    log(f"card vs CPU MSA: {len(frags)} x {MSA_LEN} bp, "
+        f"{len(card.chosen_pairwise_alignments)} pairwise alignments, "
+        f"{sum(n for n, _, _ in raw)} posterior pairs agree ({flips} "
+        f"threshold flips within 1e-5), max prob diff {worst} / 1e7; "
+        f"{len(b)} columns (CPU), identical but {near_ties} (near-ties); "
+        f"{len(kb)} kept pairs, max reweighted prob diff {kept} / 1e7")
+    return near_ties
+
+
+def _msa_profile(frags, card):
+    """The MSA run again with torch.profiler tracing the device only: its
+    device busy time (kernels and copies, one stream) against its wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _msa(frags, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in rows) / 1e6
+    if not busy > 0:
+        raise AssertionError("the profiler recorded no device time")
+    log(f"msa profile (device tracing only, {card}): {wall:.3f} s wall, "
+        f"device busy {1e3 * busy:.2f} ms ({100 * (1 - busy / wall):.2f}% "
+        f"idle); longest: "
+        + ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
+                    for e in rows[:4]))
+
+
+def _align_cli(target_fa, query_fa, device):
+    from cpecan_tpu_torch.cli import align
+
+    stdout = io.StringIO()
+    rc = align.main([target_fa, query_fa, "--device", device], stdout=stdout)
+    if rc != 0:
+        raise RuntimeError(f"align exited with {rc}")
+    return stdout.getvalue()
+
+
+def phase_msa_align(card, tmp):
+    """Phase 13: MSA (make_alignment, the native progressive merge) at
+    BASELINE config #5's stated scale, card against CPU on its first
+    fragments, and the align CLI on 256 pairs, card against CPU on 8."""
+    from cpecan_tpu_torch.align import native
+    from cpecan_tpu_torch.cli.realign import cigar_io, metrics
+    from cpecan_tpu_torch.ops import fb_batch
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+    from cpecan_tpu_torch.utils import symbols
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host library (progressive merge) "
+                             "is unavailable")
+    frags = _msa_frags(MSA_SEQS)
+    metrics.reset()
+    torch.cuda.synchronize()
+    wf.reset_launch_counts()
+    t0 = time.perf_counter()
+    ma = _msa(frags, "cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(wf.LAUNCHES)
+    if fb_batch.LAST_ENGINE != "cuda":
+        raise AssertionError(f"engine {fb_batch.LAST_ENGINE!r}, not cuda")
+    for k in ("fwd", "bwd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the MSA path")
+    cols = _check_msa(ma, frags)
+    snap = metrics.snapshot()
+    staged = sum(v["seconds"] for v in snap["stages"].values())
+    log(f"msa {MSA_SEQS} x {MSA_LEN} bp (make_alignment, 2 spanning trees, "
+        f"native progressive merge) on {card}: {dt:.2f} s; "
+        f"{len(ma.chosen_pairwise_alignments)} pairwise alignments, "
+        f"{len(cols)} columns, {len(ma.aligned_pairs)} aligned pairs kept, "
+        f"{snap['counters'].get('dp_cells', 0)} DP cells; stages "
+        f"{_stages(snap)}; outside the stages (reweighting, "
+        f"distance matrix, pair choice) {dt - staged:.2f} s; launches "
+        f"fwd {launches['fwd']}, bwd {launches['bwd']}")
+    _msa_profile(frags, card)
+    near_ties = _msa_card_cpu(frags[:MSA_COMPARE])
+
+    rng = random.Random(13)
+    root = symbols.get_random_sequence(MSA_LEN, rng).upper()
+    targets = {f"t{i}": symbols.evolve_sequence(root, rng).upper()
+               for i in range(ALIGN_TARGETS)}
+    queries = {f"q{i}": symbols.evolve_sequence(root, rng).upper()
+               for i in range(ALIGN_QUERIES)}
+    nt, nq = ALIGN_COMPARE
+    files = {}
+    for name, t, q in (("all", targets, queries),
+                       ("some", dict(list(targets.items())[:nt]),
+                        dict(list(queries.items())[:nq]))):
+        files[name] = (f"{tmp}/align_{name}_t.fa", f"{tmp}/align_{name}_q.fa")
+        _write_fasta(files[name][0], t)
+        _write_fasta(files[name][1], q)
+    metrics.reset()
+    torch.cuda.synchronize()
+    wf.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _align_cli(*files["all"], "cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(wf.LAUNCHES)
+    for k in ("fwd", "bwd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by align")
+    got = list(cigar_io.cigar_read(io.StringIO(out)))
+    n_pairs = ALIGN_TARGETS * ALIGN_QUERIES
+    if len(got) != n_pairs:
+        raise AssertionError(f"{len(got)} cigars for {n_pairs} pairs")
+    for c in got:
+        c.check()
+    log(f"align CLI {ALIGN_TARGETS} x {ALIGN_QUERIES} evolved {MSA_LEN} bp "
+        f"on {card}: {n_pairs} pairs in {dt:.2f} s, {n_pairs / dt:.1f} "
+        f"pairs/s; stages {_stages(metrics.snapshot())}; launches fwd "
+        f"{launches['fwd']}, bwd {launches['bwd']}")
+    cpu = list(cigar_io.cigar_read(io.StringIO(
+        _align_cli(*files["some"], "cpu"))))
+    card_some = [c for c in got if c.contig1 in list(targets)[:nt]
+                 and c.contig2 in list(queries)[:nq]]
+    if len(cpu) != nt * nq or cpu != card_some:
+        raise AssertionError("align: CPU cigars differ from the card's")
+    log(f"card vs CPU align: {len(cpu)} pairs, cigars identical")
+    log(f"phase 13 (MSA and align): {time.perf_counter() - t_phase:.1f} s; "
+        f"MSA near-ties {near_ties}")
+    torch.cuda.empty_cache()
+
+
 def _no_jax_package():
     bad = sorted(m for m in sys.modules if m in ("jax", "cpecan_tpu")
                  or m.startswith(("jax.", "cpecan_tpu.")))
@@ -1972,6 +2230,7 @@ def main() -> int:
         phase_long_realign(card, tmp)
         phase_long_em(card, tmp, seqs, cigars, sites)
         phase_wide(card, tmp, sites)
+        phase_msa_align(card, tmp)
     _no_jax_package()
 
     # launches: fwd and bwd from the realign main path, exp from the EM

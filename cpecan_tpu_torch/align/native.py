@@ -1,5 +1,6 @@
 """ctypes bindings for the native C++ host helpers (csrc/host/*.cpp): the
-anchor seeder/chainer, the poset-consistency decoder and the MEA DP.
+anchor seeder/chainer, the poset-consistency decoder, the MEA DP and the
+progressive MSA merge.
 
 Counterpart of cpecan_tpu/align/native.py. The shared library is built on
 demand with g++ into the checkout's ``build/cpecan_tpu_torch/`` (the
@@ -24,7 +25,8 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / "host" / f
-                for f in ("anchors.cpp", "posetfilter.cpp", "mea.cpp"))
+                for f in ("anchors.cpp", "posetfilter.cpp", "mea.cpp",
+                          "progressive.cpp"))
 BUILD_DIR = _PKG.parent / "build" / "cpecan_tpu_torch"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -68,6 +70,14 @@ def _build_and_load():
         i64p, i64p, i64p, ctypes.c_int64,
         i64p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_double,
         i64p, ctypes.POINTER(ctypes.c_double),
+    ]
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    cdll.cpecan_progressive_msa.restype = ctypes.c_int64
+    cdll.cpecan_progressive_msa.argtypes = [
+        ctypes.c_int64, i64p,
+        ctypes.c_int64, i64p, i64p, f64p,
+        ctypes.c_int64, i64p, i64p,
+        ctypes.c_double, i64p,
     ]
     return cdll
 
@@ -149,3 +159,24 @@ def filter_pairs_ordered(pairs, match_gamma: float) -> np.ndarray:
             np.ascontiguousarray(pairs["y"], np.int64),
             n, float(match_gamma), keep)
     return keep.astype(bool)
+
+
+def progressive_msa(seq_lengths, edge_a, edge_b, edge_w, order_x, order_y,
+                    match_gamma: float) -> np.ndarray:
+    """Run the whole progressive column-merge loop natively; returns the
+    union-find root per position id (see csrc/host/progressive.cpp)."""
+    if not available():
+        raise RuntimeError("native library unavailable")
+    lengths = np.ascontiguousarray(seq_lengths, np.int64)
+    ea = np.ascontiguousarray(edge_a, np.int64)
+    eb = np.ascontiguousarray(edge_b, np.int64)
+    ew = np.ascontiguousarray(edge_w, np.float64)
+    ox = np.ascontiguousarray(order_x, np.int64)
+    oy = np.ascontiguousarray(order_y, np.int64)
+    parent = np.empty(int(lengths.sum()), np.int64)
+    rc = _lib.cpecan_progressive_msa(
+        len(lengths), lengths, len(ea), ea, eb, ew, len(ox), ox, oy,
+        float(match_gamma), parent)
+    if rc != 0:
+        raise RuntimeError(f"cpecan_progressive_msa failed rc={rc}")
+    return parent

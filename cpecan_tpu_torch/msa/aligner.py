@@ -1,16 +1,25 @@
-"""The pairwise poset-consistency decode of the realign path.
+"""Multiple sequence alignment drivers.
 
-Counterpart of the part of cpecan_tpu/msa/aligner.py that
-``filter_pairwise_alignment_to_make_pairs_ordered`` needs (reference
-impl/multipleAligner.c): the AlignmentWeight graph between columns
-(weight = posterior/1e7 plus a tiny jitter to break ties, :140-147, with
-weighted-average combining on column merge, :242-246), the progressive
-merge of two column-sequences by a sparse Pareto-frontier DP (:304-492,
-:512-556), and the filter that keeps the pairs landing in one column
-(:569-602, :945-971). The native C++ decoder (csrc/host/posetfilter.cpp)
-is the fast path; the Python path here is its oracle. The MSA drivers
-(make_alignment and the native progressive merge) belong to the MSA
-slice.
+Counterpart of cpecan_tpu/msa/aligner.py: host-side greedy/progressive
+column merging over pairwise posterior matrices computed by the port's
+batch path (on the card unless the caller passes ``device="cpu"``).
+Reference semantics (impl/multipleAligner.c):
+
+  - AlignmentWeight graph between columns, weight = posterior/1e7 (+ tiny
+    jitter to break ties, :140-147), weighted-average combining on column
+    merge (:242-246)
+  - greedy MSA: pop highest weight >= matchGamma, merge iff partial order
+    stays consistent (:272-297)
+  - progressive MSA: sparse weight-driven pairwise DP between two
+    column-sequences with a Pareto frontier of best scoring ColumnPairs
+    (:304-492), sequences merged in descending similarity order (:512-556);
+    the whole loop runs natively (csrc/host/progressive.cpp), the Python
+    path here is its oracle
+  - spanning-tree pair selection (:717-782), distance matrix (:809-839),
+    Dijkstra-gain next-best pair (:841-885)
+  - makeAlignment: spanning-tree rounds (:887-939)
+  - filterPairwiseAlignmentToMakePairsOrdered: 2-seq progressive MSA as the
+    default pairwise decode path (:945-971)
 """
 
 from __future__ import annotations
@@ -18,10 +27,14 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import random
-from bisect import bisect_left
+from bisect import bisect_left, bisect_right, insort
 
 import numpy as np
 
+from cpecan_tpu_torch.utils import metrics
+
+from cpecan_tpu_torch.config import PairwiseAlignmentParameters
+from cpecan_tpu_torch.models.state_machine import StateMachine
 from cpecan_tpu_torch.msa.columns import ColumnStore, ColumnDag
 from cpecan_tpu_torch.ops import pairs as pairs_mod
 from cpecan_tpu_torch.utils.logmath import PAIR_ALIGNMENT_PROB_1
@@ -171,6 +184,22 @@ def _make_graph(seq_frags, multiple_aligned_pairs, seed=0):
     return store, dag, graph
 
 
+def get_multiple_sequence_alignment(seq_frags, multiple_aligned_pairs,
+                                    match_gamma: float) -> ColumnStore:
+    """Greedy poset MSA (reference :272-297)."""
+    store, dag, graph = _make_graph(seq_frags, multiple_aligned_pairs)
+    while True:
+        w = graph.pop_max()
+        if w is None or w.avg < match_gamma:
+            break
+        c1, c2 = store.find(w.c1), store.find(w.c2)
+        if c1 != c2 and dag.can_merge(c1, c2):
+            graph.merge_columns(w, dag)
+        else:
+            graph.remove_edge(w)
+    return store
+
+
 def _pairwise_align_columns(x_cols: list, y_cols: list, graph: WeightGraph,
                             dag: ColumnDag, match_gamma: float) -> list:
     """Sparse Pareto-frontier DP aligning two column-sequences, then merge
@@ -266,13 +295,51 @@ def _pairwise_align_columns(x_cols: list, y_cols: list, graph: WeightGraph,
     return alignment
 
 
+def _progressive_native(seq_frags, multiple_aligned_pairs, match_gamma,
+                        seq_pair_similarity_scores, seed=0):
+    """Whole progressive merge loop in C++ (csrc/host/progressive.cpp) —
+    the host merge dominates MSA wall-clock once posteriors come off the
+    device.  Returns the resulting ColumnStore, or None when the native
+    library is unavailable (callers fall back to the Python path, which
+    doubles as the parity oracle: tests/test_native_progressive.py)."""
+    from cpecan_tpu_torch.align import native as native_mod
+
+    if not native_mod.available():
+        return None
+    store = ColumnStore([f.length for f in seq_frags])
+    mp = np.asarray(multiple_aligned_pairs, MULTIPLE_PAIR_DTYPE)
+    offs = np.asarray(store.offsets, np.int64)
+    pid1 = offs[mp["seq1"]] + mp["pos1"]
+    pid2 = offs[mp["seq2"]] + mp["pos2"]
+    # identical jitter stream to WeightGraph.add_pair (one draw per pair,
+    # in pair order)
+    rng = random.Random(seed)
+    jit = np.fromiter((rng.random() for _ in range(len(mp))), np.float64,
+                      len(mp))
+    weights = mp["prob"] / PAIR_ALIGNMENT_PROB_1 + jit * _jitter_scale()
+    order = list(reversed(sorted(seq_pair_similarity_scores)))
+    ox = np.asarray([s1 for _s, s1, _s2 in order], np.int64)
+    oy = np.asarray([s2 for _s, _s1, s2 in order], np.int64)
+    parent = native_mod.progressive_msa(
+        np.asarray(store.seq_lengths, np.int64), pid1, pid2, weights,
+        ox, oy, match_gamma)
+    store.parent = parent.tolist()
+    members: dict = {}
+    for pid, r in enumerate(store.parent):
+        members.setdefault(r, []).append(pid)
+    store.members = {r: m for r, m in members.items() if len(m) > 1}
+    return store
+
+
 def get_multiple_sequence_alignment_progressive(
         seq_frags, multiple_aligned_pairs, match_gamma: float,
         seq_pair_similarity_scores) -> ColumnStore:
     """Progressive MSA merging sequences in descending similarity order
-    (reference :512-556). seq_pair_similarity_scores: (score, seq1, seq2).
-    The Python path of cpecan_tpu's version (its native merge,
-    native/progressive.cpp, waits for the MSA slice)."""
+    (reference :512-556). seq_pair_similarity_scores: (score, seq1, seq2)."""
+    store = _progressive_native(seq_frags, multiple_aligned_pairs,
+                                match_gamma, seq_pair_similarity_scores)
+    if store is not None:
+        return store
     store, dag, graph = _make_graph(seq_frags, multiple_aligned_pairs)
     col_seqs = [
         [store.pid(s, p) for p in range(f.length)] for s, f in enumerate(seq_frags)
@@ -340,3 +407,298 @@ def filter_pairwise_alignment_to_make_pairs_ordered(aligned_pairs, seq_x, seq_y,
         frags, mpairs, match_gamma, [(0, 0, 1)])
     kept = filter_multiple_aligned_pairs(store, mpairs)
     return pairs_mod.make_pairs(kept["prob"], kept["pos1"], kept["pos2"])
+
+
+# ---------------------------------------------------------------------------
+# Pair selection and the top-level makeAlignment drivers
+# ---------------------------------------------------------------------------
+
+def _get_alignment_score(aligned_pairs, l1: int, l2: int) -> int:
+    """Normalised avg posterior that a position in the shorter seq is
+    aligned (reference getAlignmentScore :604-619)."""
+    total = int(aligned_pairs["prob"].sum()) if len(aligned_pairs) else 0
+    j = max(1, min(l1, l2))
+    d = min(1.0, max(0.0, total / (j * PAIR_ALIGNMENT_PROB_1)))
+    return int(d * PAIR_ALIGNMENT_PROB_1)
+
+
+def _add_multiple_aligned_pairs_batch(sm, id_pairs, seq_frags, pair_lists, p,
+                                      device="cuda"):
+    """Pairwise align many frag pairs in one cross-pair device batch,
+    reweight, convert to 5-tuples; returns the similarity scores
+    (semantics of addMultipleAlignedPairs, reference :653-666, batched —
+    the reference aligns the chosen pairs one at a time)."""
+    from cpecan_tpu_torch.align import batch as batch_align
+    from cpecan_tpu_torch.align.anchors import get_anchors
+
+    id_pairs = list(id_pairs)
+    jobs = []
+    for s1, s2 in id_pairs:
+        f1, f2 = seq_frags[s1], seq_frags[s2]
+        jobs.append((f1.seq, f2.seq, get_anchors(f1.seq, f2.seq, p),
+                     f1.left_end_id != f2.left_end_id,
+                     f1.right_end_id != f2.right_end_id))
+    results = batch_align.get_aligned_pairs_batch(sm, jobs, p, device=device)
+    scores = []
+    for (s1, s2), aligned in zip(id_pairs, results):
+        f1, f2 = seq_frags[s1], seq_frags[s2]
+        aligned = pairs_mod.reweight_aligned_pairs(
+            aligned, f1.length, f2.length, p.gapGamma)
+        scores.append(_get_alignment_score(aligned, f1.length, f2.length))
+        m = np.empty(len(aligned), dtype=MULTIPLE_PAIR_DTYPE)
+        m["prob"] = aligned["prob"]
+        m["seq1"] = s1
+        m["pos1"] = aligned["x"]
+        m["seq2"] = s2
+        m["pos2"] = aligned["y"]
+        pair_lists.append(m)
+    return scores
+
+
+def get_reference_pairwise_alignments(seq_frags) -> list:
+    """n-1 seed pairs grouped by shared right-end ids with middle-element
+    references (reference :717-770)."""
+    chosen: list = []
+    if not seq_frags:
+        return chosen
+    l = sorted((f.right_end_id, f.length, i) for i, f in enumerate(seq_frags))
+
+    def pick(sub):
+        ref = sub[len(sub) // 2][2]
+        for item in sub:
+            if item[2] != ref:
+                a, b = ref, item[2]
+                chosen.append((min(a, b), max(a, b)))
+        return sub[len(sub) // 2]
+
+    groups = []
+    start = 0
+    for j in range(1, len(l) + 1):
+        if j == len(l) or l[j][0] != l[start][0]:
+            groups.append(pick(l[start:j]))
+            start = j
+    pick(groups)
+    assert len(chosen) == len(seq_frags) - 1
+    return chosen
+
+
+def _distance_matrix_naive(store: ColumnStore, seq_frags,
+                           max_pairs_to_consider: int):
+    """Direct per-pair loop over column members — the parity oracle for
+    the vectorized get_distance_matrix (reference :809-839 structure)."""
+    n = len(seq_frags)
+    subs = np.zeros((n, n), dtype=np.int64)
+    idents = np.zeros((n, n), dtype=np.int64)
+    considered = 0
+    for _, members in store.all_columns().items():
+        if considered >= max_pairs_to_consider:
+            break
+        for a in range(len(members)):
+            s1, p1 = members[a]
+            b1 = seq_frags[s1].seq[p1]
+            for b in range(a + 1, len(members)):
+                s2, p2 = members[b]
+                b2 = seq_frags[s2].seq[p2]
+                if b1 == b2:
+                    idents[s1, s2] += 1
+                    idents[s2, s1] += 1
+                else:
+                    subs[s1, s2] += 1
+                    subs[s2, s1] += 1
+                considered += 1
+    return subs, idents
+
+
+def get_distance_matrix(store: ColumnStore, seq_frags, max_pairs_to_consider: int):
+    """Substitution/identity counts from columns (reference :809-839).
+    Returns (subs, identities) matrices: subs[i,j] for i>j, identities for
+    i<j in the reference's packed layout; here two symmetric matrices.
+
+    Vectorized: roots by pointer-jumping over the union-find array, member
+    pairs expanded per column-size bucket — the O(n_positions * members)
+    work stays in numpy (the host-side hot spot of the 100-sequence MSA
+    config; parity with _distance_matrix_naive is tested)."""
+    n = len(seq_frags)
+    subs = np.zeros((n, n), dtype=np.int64)
+    idents = np.zeros((n, n), dtype=np.int64)
+    N = store.n_positions
+    if N == 0:
+        return subs, idents
+
+    roots = np.asarray(store.parent, dtype=np.int64)
+    while True:  # pointer jumping to the union-find roots, log rounds
+        nxt = roots[roots]
+        if np.array_equal(nxt, roots):
+            break
+        roots = nxt
+
+    seq_starts = np.asarray(store.offsets, dtype=np.int64)
+    seq_of = np.searchsorted(seq_starts, np.arange(N), side="right") - 1
+    base = np.concatenate([
+        np.frombuffer(f.seq.encode("latin-1"), dtype=np.uint8)
+        for f in seq_frags])
+
+    # columns as groups of pids sorted by root, ties by pid; group order =
+    # ascending min pid (= the all_columns first-encounter order the
+    # max_pairs cutoff is defined over)
+    order = np.argsort(roots, kind="stable")
+    rs = roots[order]
+    gstart = np.flatnonzero(np.r_[True, rs[1:] != rs[:-1]])
+    counts = np.diff(np.r_[gstart, N])
+    gorder = np.argsort(order[gstart], kind="stable")
+    gstart, counts = gstart[gorder], counts[gorder]
+
+    # cutoff: a column's pairs count iff fewer than max pairs were
+    # considered before it (per-column granularity, like the loop above)
+    cum_before = np.r_[0, np.cumsum(counts * (counts - 1) // 2)[:-1]]
+    keep = (cum_before < max_pairs_to_consider) & (counts >= 2)
+    gstart, counts = gstart[keep], counts[keep]
+
+    for k in np.unique(counts):
+        g = gstart[counts == k]
+        ii, jj = np.triu_indices(int(k), 1)
+        pa = order[(g[:, None] + ii[None, :]).ravel()]
+        pb = order[(g[:, None] + jj[None, :]).ravel()]
+        s1, s2 = seq_of[pa], seq_of[pb]
+        eq = base[pa] == base[pb]
+        np.add.at(idents, (s1[eq], s2[eq]), 1)
+        np.add.at(idents, (s2[eq], s1[eq]), 1)
+        ne = ~eq
+        np.add.at(subs, (s1[ne], s2[ne]), 1)
+        np.add.at(subs, (s2[ne], s1[ne]), 1)
+    return subs, idents
+
+
+def subs_per_site(subs, idents, s1, s2) -> float:
+    tot = subs[s1, s2] + idents[s1, s2]
+    return 0.0 if tot == 0 else subs[s1, s2] / tot
+
+
+def _dijkstra(n, edges, src):
+    dist = [float("inf")] * n
+    dist[src] = 0.0
+    q = [(0.0, src)]
+    while q:
+        d, u = heapq.heappop(q)
+        if d > dist[u]:
+            continue
+        for v, w in edges.get(u, ()):  # (neighbor, weight)
+            nd = d + w
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(q, (nd, v))
+    return dist
+
+
+def get_next_best_pair(seq1, subs, idents, chosen_pairs, rng: random.Random):
+    """Max (path distance - direct distance) gain pair via Dijkstra over the
+    chosen-pair graph (reference :858-885)."""
+    n = subs.shape[0]
+    edges: dict[int, list] = {}
+    for a, b in chosen_pairs:
+        w = subs_per_site(subs, idents, a, b)
+        edges.setdefault(a, []).append((b, w))
+        edges.setdefault(b, []).append((a, w))
+    dist = _dijkstra(n, edges, seq1)
+    max_gain, best = float("-inf"), None
+    for seq2 in range(n):
+        if seq2 == seq1:
+            continue
+        gain = dist[seq2] - subs_per_site(subs, idents, seq1, seq2)
+        if gain > max_gain or (gain == max_gain and rng.random() > 0.5):
+            pair = (min(seq1, seq2), max(seq1, seq2))
+            if pair not in chosen_pairs:
+                max_gain, best = gain, seq2
+    return best
+
+
+@dataclasses.dataclass
+class MultipleAlignment:
+    """Result bundle (reference inc/multipleAligner.h MultipleAlignment)."""
+    columns: ColumnStore
+    aligned_pairs: np.ndarray  # consistent 5-tuples
+    chosen_pairwise_alignments: list  # (score, seq1, seq2)
+
+    def column_list(self):
+        """Columns as lists of (seq, pos), sorted for deterministic output."""
+        cols = [sorted(m) for m in self.columns.all_columns().values()]
+        cols.sort()
+        return cols
+
+
+def make_alignment_using_all_pairs(sm: StateMachine, seq_frags,
+                                   use_progressive_merging: bool,
+                                   match_gamma: float,
+                                   p: PairwiseAlignmentParameters,
+                                   device="cuda") -> MultipleAlignment:
+    """All-vs-all MSA (reference :683-699)."""
+    pair_lists: list = []
+    n = len(seq_frags)
+    id_pairs = [(s1, s2) for s1 in range(n) for s2 in range(s1 + 1, n)]
+    got = _add_multiple_aligned_pairs_batch(sm, id_pairs, seq_frags,
+                                            pair_lists, p, device)
+    scores = [(sc, s1, s2) for sc, (s1, s2) in zip(got, id_pairs)]
+    mpairs = (np.concatenate(pair_lists) if pair_lists
+              else np.empty(0, dtype=MULTIPLE_PAIR_DTYPE))
+    with metrics.stage("msa_merge"):
+        if n == 2 or use_progressive_merging:
+            store = get_multiple_sequence_alignment_progressive(
+                seq_frags, mpairs, match_gamma, scores)
+        else:
+            store = get_multiple_sequence_alignment(
+                seq_frags, mpairs, match_gamma)
+    return MultipleAlignment(
+        columns=store,
+        aligned_pairs=filter_multiple_aligned_pairs(store, mpairs),
+        chosen_pairwise_alignments=scores)
+
+
+def make_alignment(sm: StateMachine, seq_frags, spanning_trees: int,
+                   max_pairs_to_consider: int, use_progressive_merging: bool,
+                   match_gamma: float, p: PairwiseAlignmentParameters,
+                   seed: int = 0, device="cuda") -> MultipleAlignment:
+    """Spanning-tree MSA rounds (reference makeAlignment :887-939)."""
+    n = len(seq_frags)
+    if spanning_trees * (n - 1) >= (n * (n - 1)) // 2:
+        return make_alignment_using_all_pairs(
+            sm, seq_frags, use_progressive_merging, match_gamma, p, device)
+
+    rng = random.Random(seed)
+    pair_lists: list = []
+    chosen_set = set(get_reference_pairwise_alignments(seq_frags))
+    seed_pairs = sorted(chosen_set)
+    got = _add_multiple_aligned_pairs_batch(sm, seed_pairs, seq_frags,
+                                            pair_lists, p, device)
+    chosen_scored = [(sc, s1, s2) for sc, (s1, s2) in zip(got, seed_pairs)]
+
+    iteration = 0
+    while True:
+        mpairs = (np.concatenate(pair_lists) if pair_lists
+                  else np.empty(0, dtype=MULTIPLE_PAIR_DTYPE))
+        with metrics.stage("msa_merge"):
+            if n == 2 or use_progressive_merging:
+                store = get_multiple_sequence_alignment_progressive(
+                    seq_frags, mpairs, match_gamma, chosen_scored)
+            else:
+                store = get_multiple_sequence_alignment(
+                    seq_frags, mpairs, match_gamma)
+        iteration += 1
+        if iteration >= spanning_trees:
+            return MultipleAlignment(
+                columns=store,
+                aligned_pairs=filter_multiple_aligned_pairs(store, mpairs),
+                chosen_pairwise_alignments=chosen_scored)
+        subs, idents = get_distance_matrix(store, seq_frags, max_pairs_to_consider)
+        # pair selection stays sequential (each choice updates chosen_set,
+        # reference :925-937); the alignments run as one device batch
+        new_pairs = []
+        for seq in range(n):
+            other = get_next_best_pair(seq, subs, idents, chosen_set, rng)
+            if other is not None:
+                pair = (min(seq, other), max(seq, other))
+                new_pairs.append(pair)
+                chosen_set.add(pair)
+        got = _add_multiple_aligned_pairs_batch(sm, new_pairs, seq_frags,
+                                                pair_lists, p, device)
+        chosen_scored.extend(
+            (sc, s1, s2) for sc, (s1, s2) in zip(got, new_pairs))
