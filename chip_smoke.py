@@ -74,7 +74,18 @@ Phases (any failure raises, so the exit code is non-zero):
      the first 10 fragments on the card and on the CPU (equal columns and
      kept pairs, near-ties counted); the align CLI on 8 x 32 evolved 1 kb
      sequences (256 pairs), pairs/s, and the first 2 x 4 pairs again with
-     --device cpu (identical cigars).
+     --device cpu (identical cigars);
+ 14. data parallel, on phase 4's records: (a) the EM expectation step at
+     the EM defaults on a DataMesh of two shards on the one card against
+     no mesh (counts, likelihood), launch counts reset before and read
+     after the mesh run, and batch_posteriors at realign's parameters
+     with and without that mesh (identical pair sets); (b) the em CLI as
+     one process, as two gloo processes on the card, and as one process
+     with --dataParallel (5-state, 2 iterations, ~10 chunks): the models
+     must agree, with each run's wall time; (c) one EM iteration under
+     utils.metrics.trace, whose trace must name wavefront_exp and
+     wavefront_fwd; (d) CPECAN_TPU_DEBUG=1 on the headline batch: the
+     same outputs as unchecked, and a NaN transition raises "fb debug".
 
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Imports no jax and nothing of cpecan_tpu
@@ -87,8 +98,10 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import random
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -2184,6 +2197,272 @@ def phase_msa_align(card, tmp):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ data parallel
+
+# realign's batch_posteriors with and without a mesh on this many records
+DP_POSTERIOR_RECORDS = 64
+# the em CLI runs: ~10 chunks of the 1024 records, so both ranks get work
+DP_EM_ARGS = ["--modelType", "fiveState", "--iterations", "2",
+              "--maxAlignmentLengthPerJob", "100000"]
+DP_TIMEOUT_S = 300  # per em CLI process
+DP_COLLECTIVE_TIMEOUT_S = "60"  # rendezvous and all-gather
+# two processes against one (tests/test_multihost.py:146-150)
+DP_RTOL, DP_ATOL = 1e-6, 1e-9
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _em_processes(argvs):
+    """Run ``python -m cpecan_tpu_torch.cli.em`` once per argv, all at
+    once, each with a timeout; every process is stopped before this
+    returns. Returns the wall seconds until the last one ended."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cpecan_tpu_torch.cli.em", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env=env) for argv in argvs]
+    try:
+        errs = [pr.communicate(timeout=DP_TIMEOUT_S)[1] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    dt = time.perf_counter() - t0
+    for pr, err in zip(procs, errs):
+        if pr.returncode != 0:
+            raise RuntimeError(f"em process exited with {pr.returncode}: "
+                               f"{err[-3000:]}")
+    return dt
+
+
+def _dp_expectation(seqs, cigars, mesh, card):
+    """(a): the EM expectation step over all records at the EM defaults,
+    without and with the two-shard mesh; then batch_posteriors at
+    realign's parameters."""
+    from cpecan_tpu_torch.align import batch
+    from cpecan_tpu_torch.cli import realign
+    from cpecan_tpu_torch.em import em as em_mod
+    from cpecan_tpu_torch.models.hmm import Hmm, StateMachineType
+    from cpecan_tpu_torch.models.state_machine import state_machine5
+    from cpecan_tpu_torch.ops import fb_batch
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    p = em_mod.EmOptions().pairwise_params()
+    tasks = em_mod.tasks_from_cigars(cigars, seqs, p)
+    counts, launches, secs = {}, {}, {"none": [], "mesh": []}
+    # in turns (none, mesh, mesh, none); launch counts reset just before
+    # and read just after each run
+    for name, m in (("none", None), ("mesh", mesh), ("mesh", mesh),
+                    ("none", None)):
+        hmm = Hmm(StateMachineType.fiveState)
+        torch.cuda.synchronize()
+        wf.reset_launch_counts()
+        t0 = time.perf_counter()
+        em_mod.expectation_step(state_machine5(), tasks, p, hmm, mesh=m,
+                                device="cuda")
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+        launches[name] = dict(wf.LAUNCHES)
+        if m is not None and fb_batch.LAST_ENGINE != "cuda_sharded":
+            raise AssertionError(
+                f"engine {fb_batch.LAST_ENGINE!r}, not cuda_sharded")
+        counts[name] = hmm
+    for k in ("fwd", "exp"):
+        if not launches["mesh"][k] >= launches["none"][k] > 0:
+            raise AssertionError(f"{k}: {launches['mesh'][k]} launches on the "
+                                 f"mesh, {launches['none'][k]} without")
+    worst = _close_hmms(counts["mesh"], counts["none"],
+                        "expectation step mesh vs none")
+    log(f"data parallel (a) expectation step, {len(tasks)} tasks, 2 shards "
+        f"on {card}: s per run in turns, no mesh "
+        f"{', '.join(f'{t:.3f}' for t in secs['none'])}, mesh "
+        f"{', '.join(f'{t:.3f}' for t in secs['mesh'])}; launches exp "
+        f"{launches['mesh']['exp']} / fwd {launches['mesh']['fwd']} (no mesh "
+        f"{launches['none']['exp']} / {launches['none']['fwd']}); max "
+        f"relative difference transitions {worst[0]:.3g}, emissions "
+        f"{worst[1]:.3g}, likelihood {worst[2]:.3g}")
+
+    pr = realign.alignment_parameters(realign.make_parser().parse_args(["x"]))
+    jobs = _realign_jobs(seqs, cigars[:DP_POSTERIOR_RECORDS], pr)
+    outs = []
+    for m in (None, mesh):
+        wf.reset_launch_counts()
+        outs.append(batch.batch_posteriors(state_machine5(), jobs, pr,
+                                           device="cuda", mesh=m))
+        launches = dict(wf.LAUNCHES)
+        if launches["fwd"] <= 0 or launches["bwd"] <= 0:
+            raise AssertionError(f"batch_posteriors launched {launches}")
+    n_pairs, not_equal, worst = 0, 0, 0
+    for a, b in zip(*outs):
+        if (a.shape != b.shape or not np.array_equal(a["x"], b["x"])
+                or not np.array_equal(a["y"], b["y"])):
+            raise AssertionError("the mesh changed a job's pair set")
+        n_pairs += len(a)
+        if not np.array_equal(a, b):
+            not_equal += 1
+            worst = max(worst, int(np.abs(a["prob"].astype(np.int64)
+                                          - b["prob"]).max()))
+    if worst > 100:
+        raise AssertionError(f"posteriors differ by {worst}/1e7 on the mesh")
+    log(f"data parallel (a) batch_posteriors, {len(jobs)} records, 2 shards: "
+        f"{n_pairs} pairs, pair sets identical; "
+        + ("bit-equal on every record" if not not_equal else
+           f"NOT bit-equal on {not_equal} records (max {worst}/1e7)"))
+
+
+def _dp_em_cli(tmp, fasta, cig):
+    """(b): the em CLI as one process, as two gloo processes on the card,
+    and as one process with --dataParallel. Returns the wall seconds."""
+    from cpecan_tpu_torch.models.hmm import Hmm
+
+    def argv(out, extra=()):
+        return ["--sequences", fasta, "--alignments", cig, "--outputModel",
+                out, "--device", "cuda", "--diagonalExpansion", "10",
+                "--splitMatrixBiggerThanThis", "3000", "--trainEmissions",
+                "--randomStart", "--trials", "1", "--seed", "0",
+                *DP_EM_ARGS, *extra]
+
+    one, dp = f"{tmp}/dp_one.hmm", f"{tmp}/dp_mesh.hmm"
+    ranks = [f"{tmp}/dp_rank{i}.hmm" for i in range(2)]
+    walls = {"one": _em_processes([argv(one)])}
+    port = _free_port()
+    walls["two"] = _em_processes([argv(ranks[i], [
+        "--coordinator", f"127.0.0.1:{port}", "--numProcesses", "2",
+        "--processId", str(i), "--collectiveTimeout",
+        DP_COLLECTIVE_TIMEOUT_S]) for i in range(2)])
+    walls["dataParallel"] = _em_processes([argv(dp, ["--dataParallel"])])
+    if os.path.exists(ranks[1]):
+        raise AssertionError("rank 1 wrote a model file")
+    ref, got = Hmm.load(one), Hmm.load(ranks[0])
+    np.testing.assert_allclose(got.transitions, ref.transitions, rtol=DP_RTOL,
+                               atol=DP_ATOL)
+    np.testing.assert_allclose(got.emissions, ref.emissions, rtol=DP_RTOL,
+                               atol=DP_ATOL)
+    rel = abs(got.likelihood - ref.likelihood) / abs(ref.likelihood)
+    if rel > DP_RTOL:
+        raise AssertionError(f"2 processes: likelihood {got.likelihood} vs "
+                             f"{ref.likelihood}")
+    with open(one) as a, open(dp) as b:
+        if a.read() != b.read():
+            raise AssertionError("--dataParallel changed the model file")
+    worst = max(float(np.max(np.abs(got.transitions - ref.transitions))),
+                float(np.max(np.abs(got.emissions - ref.emissions))))
+    log(f"data parallel (b) em CLI, {' '.join(DP_EM_ARGS)}: wall 1 process "
+        f"{walls['one']:.2f} s, 2 gloo processes on the one card "
+        f"{walls['two']:.2f} s, 1 process --dataParallel "
+        f"{walls['dataParallel']:.2f} s (process start included); 2 processes "
+        f"vs 1: max abs difference {worst:.3g}, likelihood {rel:.3g} "
+        f"relative ({len(ref.running_likelihoods)} iterations, likelihoods "
+        f"{ref.running_likelihoods}); --dataParallel file identical")
+    return walls
+
+
+def _dp_trace(tmp, fasta, seqs, cigars):
+    """(c): one EM iteration under utils.metrics.trace."""
+    from cpecan_tpu_torch.utils import metrics
+
+    cig = f"{tmp}/trace.cigar"
+    _write_cigars(cig, cigars[:DP_POSTERIOR_RECORDS])
+    log_dir = f"{tmp}/trace"
+    t0 = time.perf_counter()
+    with metrics.trace(log_dir):
+        _em(fasta, cig, f"{tmp}/traced.hmm", "cuda", ["--iterations", "1"])
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    paths = [f"{log_dir}/{f}" for f in os.listdir(log_dir)
+             if f.endswith(".pt.trace.json")]
+    if len(paths) != 1:
+        raise AssertionError(f"trace files: {os.listdir(log_dir)}")
+    with open(paths[0]) as fh:
+        text = fh.read()
+    for name in ("wavefront_exp", "wavefront_fwd"):
+        if name not in text:
+            raise AssertionError(f"the trace does not name {name}")
+    log(f"data parallel (c) metrics.trace: 1 EM iteration on "
+        f"{DP_POSTERIOR_RECORDS} records in {dt:.2f} s traced; "
+        f"{os.path.basename(paths[0])} {len(text)} bytes names "
+        f"wavefront_exp and wavefront_fwd")
+
+
+def _dp_debug(card):
+    """(d): CPECAN_TPU_DEBUG=1 on the headline batch through
+    fb_pass_batch, then a NaN transition."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_batch
+
+    bt = _band_batch(np.random.default_rng(0), 256, 2048, "posterior_match",
+                     state_machine5, anchor_every=50)
+    hmm = PairHMM.from_state_machine(bt["sm"]).cuda()
+    bad = {k: getattr(hmm, k).cpu().numpy().copy()
+           for k, _ in hmm.named_buffers()}
+    bad["t"][1, 0, 0] = np.nan
+    bad = PairHMM(bad).cuda()
+    def call(model, mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fb_batch.fb_pass_batch(model, *bt["args"], mode=mode,
+                                     width=bt["W"])
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    os.environ.pop("CPECAN_TPU_DEBUG", None)
+    try:
+        for mode in ("posterior_match", "expectation"):
+            ms, first = {"0": [], "1": []}, None
+            for flag in ("0", "1", "1", "0", "0", "1"):  # in turns
+                os.environ["CPECAN_TPU_DEBUG"] = flag
+                t, out = call(hmm, mode)
+                ms[flag].append(t)
+                first = first or out
+                for k, v in out.items():
+                    if not torch.equal(v, first[k]):
+                        raise AssertionError(f"debug mode changed {mode} {k}")
+            log(f"data parallel (d) CPECAN_TPU_DEBUG=1, headline batch "
+                f"{mode} on {card}: outputs identical; median of 3 calls "
+                f"{statistics.median(ms['1']):.2f} ms checked, "
+                f"{statistics.median(ms['0']):.2f} ms unchecked (host "
+                f"clock, synchronised)")
+        os.environ["CPECAN_TPU_DEBUG"] = "0"
+        _, out = call(bad, "posterior_match")
+        finite = ", ".join(
+            f"{k} {100 * torch.isfinite(v).float().mean().item():.1f}%"
+            for k, v in out.items())
+        os.environ["CPECAN_TPU_DEBUG"] = "1"
+        try:
+            call(bad, "posterior_match")
+        except RuntimeError as e:
+            if "fb debug" not in str(e):
+                raise
+            log(f"data parallel (d) NaN transition t[1, 0, 0]: raised {e}; "
+                f"finite share of the unchecked outputs: {finite}")
+        else:
+            raise AssertionError("a NaN transition passed the debug checks")
+    finally:
+        os.environ.pop("CPECAN_TPU_DEBUG", None)
+
+
+def phase_data_parallel(card, tmp, fasta, cig, seqs, cigars):
+    """Phase 14: the data-parallel slice on one card."""
+    from cpecan_tpu_torch.parallel.mesh import DataMesh
+
+    t_phase = time.perf_counter()
+    mesh = DataMesh(["cuda:0", "cuda:0"])
+    _dp_expectation(seqs, cigars, mesh, card)
+    walls = _dp_em_cli(tmp, fasta, cig)
+    _dp_trace(tmp, fasta, seqs, cigars)
+    _dp_debug(card)
+    log(f"phase 14 (data parallel): {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return walls
+
+
 def _no_jax_package():
     bad = sorted(m for m in sys.modules if m in ("jax", "cpecan_tpu")
                  or m.startswith(("jax.", "cpecan_tpu.")))
@@ -2231,6 +2510,7 @@ def main() -> int:
         phase_long_em(card, tmp, seqs, cigars, sites)
         phase_wide(card, tmp, sites)
         phase_msa_align(card, tmp)
+        phase_data_parallel(card, tmp, fasta, cig, seqs, cigars)
     _no_jax_package()
 
     # launches: fwd and bwd from the realign main path, exp from the EM

@@ -11,6 +11,12 @@ scatter to their jobs with the chunk coordinate shifts.
 Chunks too long for the two-pass engine (``fb_streaming.should_stream``)
 run one at a time through the streaming engines (ops/fb_streaming.py):
 on the card the burn-in-parallel engine, on the CPU the exact one.
+
+With a ``parallel.mesh.DataMesh`` the mesh's devices take the place of
+``device``: each launch's batch is padded to a multiple of the mesh size
+with zero-length pairs and split over the devices
+(``fb_batch.fb_pass_batch``); streamed chunks run on the mesh's first
+device.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from cpecan_tpu_torch.models.state_machine import PairHMM
 from cpecan_tpu_torch.ops import compact as compact_mod
 from cpecan_tpu_torch.ops import fb_batch, fb_parallel, fb_streaming
 from cpecan_tpu_torch.ops.fb_streaming import should_stream
+from cpecan_tpu_torch.parallel.mesh import pad_to_multiple
 
 
 @dataclasses.dataclass
@@ -166,19 +173,21 @@ def _band_of(t: _Task, p: PairwiseAlignmentParameters):
 
 
 def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
-                     mode: str = "posterior_match", device="cuda"):
+                     mode: str = "posterior_match", device="cuda", mesh=None):
     """Run all jobs' band chunks through shape-bucketed device batches.
 
     jobs: iterable of (seq_x, seq_y, anchor_pairs, ragged_left,
     ragged_right); anchor_pairs=None runs the job full-band (whole
     rectangle, no splitting). Returns, per job, the thresholded posterior
     pair array(s): one array in posterior_match mode, a (match, gap_x,
-    gap_y) triple in posterior_all mode.
+    gap_y) triple in posterior_all mode. With a mesh, each launch's batch
+    is padded to a multiple of the device count and sharded over it.
     """
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.devices[0]
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available")
+    n_dev = 1 if mesh is None else mesh.size
     n_out = 3 if mode == "posterior_all" else 1
     keys = ("post_match", "post_gap_x", "post_gap_y")[:n_out]
     results = [[[] for _ in jobs] for _ in range(n_out)]
@@ -223,10 +232,11 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
         for (P, W), items in sorted(buckets.items()):
             bmax = max(1, int(_DENSE_BUDGET // ((P + 1) * W * 4 * n_out)))
             bmax = 1 << (bmax.bit_length() - 1)  # power of two: B == bmax
+            bmax = max(bmax, n_dev)
             launches.extend(((P, W), items[s:s + bmax])
                             for s in range(0, len(items), bmax))
         for (P, W), items in launches:
-            B = _batch_bucket_size(len(items))
+            B = pad_to_multiple(_batch_bucket_size(len(items)), n_dev)
             sx = np.zeros((B, P), np.int32)
             sy = np.zeros((B, P), np.int32)
             offsets = np.zeros((B, P + 1), np.int32)
@@ -248,9 +258,12 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
                 rr[i] = t.ragged_right
 
             metrics.add("dp_cells", int(widths[: len(items)].sum()))
-            on_dev = [torch.from_numpy(a).to(device) for a in
-                      (sx, sy, offsets, widths, lx, ly, rl, rr)]
-            out = fb_batch.fb_pass_batch(hmm, *on_dev, mode=mode, width=W)
+            args = [torch.from_numpy(a) for a in
+                    (sx, sy, offsets, widths, lx, ly, rl, rr)]
+            if mesh is None:  # with a mesh, each shard goes to its device
+                args = [a.to(device) for a in args]
+            out = fb_batch.fb_pass_batch(hmm, *args, mode=mode, width=W,
+                                         mesh=mesh)
             pending.append((items, offsets.astype(np.int64), out))
             pending_bytes += B * (P + 1) * W * 4 * n_out
             if pending_bytes >= _DENSE_BUDGET:
@@ -265,15 +278,17 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
 
 
 def get_aligned_pairs_batch(sm: StateMachine, jobs,
-                            p: PairwiseAlignmentParameters, device="cuda"):
+                            p: PairwiseAlignmentParameters, device="cuda",
+                            mesh=None):
     """Batched get_aligned_pairs_using_anchors over many jobs."""
     return batch_posteriors(sm, jobs, p, mode="posterior_match",
-                            device=device)
+                            device=device, mesh=mesh)
 
 
 def get_aligned_pairs_with_indels_batch(sm: StateMachine, jobs,
                                         p: PairwiseAlignmentParameters,
-                                        device="cuda"):
+                                        device="cuda", mesh=None):
     """Batched get_aligned_pairs_with_indels_using_anchors: per job a
     (match, gap_x, gap_y) pair-array triple."""
-    return batch_posteriors(sm, jobs, p, mode="posterior_all", device=device)
+    return batch_posteriors(sm, jobs, p, mode="posterior_all", device=device,
+                            mesh=mesh)

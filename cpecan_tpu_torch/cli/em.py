@@ -3,12 +3,20 @@
 Counterpart of cpecan_tpu/cli/em.py with the same flags and file
 formats. ``--device`` (default ``cuda``) picks where the expectation
 passes run; ``cuda`` without a CUDA device raises, and nothing falls
-back to the CPU. The data-parallel and multi-host flags (--dataParallel,
---coordinator, --numProcesses > 1) raise NotImplementedError: they are
-the port's data-parallel item (ROADMAP Queue 1 item 10).
+back to the CPU.
+
+Data parallelism, as in cpecan_tpu: ``--dataParallel`` shards each
+expectation batch over all local devices of ``--device``'s type (a
+``parallel.mesh.DataMesh``); ``--coordinator host:port --numProcesses N
+--processId i`` runs process i of N (a gloo process group, on the card
+too), each on its shard of the chunks, with the counts summed across the
+processes and the files written by process 0. ``--collectiveTimeout``
+bounds how long a process waits for the others.
 
 Usage: python -m cpecan_tpu_torch.cli.em --sequences "a.fa b.fa" \
            --alignments c.cigar --outputModel hmm.txt [options]
+  two processes:  ... --coordinator 127.0.0.1:29500 --numProcesses 2 \
+           --processId 0    (and --processId 1 in a second shell)
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ import sys
 from cpecan_tpu_torch.em import em as em_mod
 from cpecan_tpu_torch.io import cigar as cigar_io
 from cpecan_tpu_torch.cli.realign import read_sequences, resolve_device
+from cpecan_tpu_torch.parallel.mesh import (
+    DEFAULT_TIMEOUT_S, data_mesh, initialize_distributed,
+    shutdown_distributed)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -71,6 +82,11 @@ def make_parser() -> argparse.ArgumentParser:
                     default=int(os.environ.get("CPECAN_NUM_PROCESSES", "1")))
     ap.add_argument("--processId", type=int,
                     default=int(os.environ.get("CPECAN_PROCESS_ID", "0")))
+    ap.add_argument("--collectiveTimeout", type=float,
+                    default=DEFAULT_TIMEOUT_S,
+                    help="seconds a process waits for the others at the "
+                         "rendezvous and at each iteration's count sum "
+                         "before it fails")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the expectation passes (default "
                          "cuda; cpu runs the kernels' plain PyTorch "
@@ -99,10 +115,17 @@ def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
     args.constraintDiagonalTrim = 0
     parse_options_to_realign(args)
-    if args.dataParallel or args.coordinator or args.numProcesses > 1:
-        raise NotImplementedError(
-            "--dataParallel, --coordinator and --numProcesses > 1 need the "
-            "port's data-parallel EM (ROADMAP Queue 1 item 10)")
+    initialize_distributed(args.coordinator, args.numProcesses,
+                           args.processId, timeout_s=args.collectiveTimeout)
+    try:
+        return _train(args)
+    finally:
+        # a process that raises leaves the group, so that the others fail
+        # at their next collective instead of waiting for it
+        shutdown_distributed()
+
+
+def _train(args) -> int:
     device = resolve_device(args.device)
     options = em_mod.EmOptions(
         modelType=args.modelType,
@@ -129,8 +152,10 @@ def main(argv=None) -> int:
     sequences = read_sequences(args.sequences.split())
     with open(args.alignments) as fh:
         cigars = list(cigar_io.cigar_read(fh))
+    mesh = data_mesh(device=device) if args.dataParallel else None
     em_mod.expectation_maximisation_trials(
-        sequences, cigars, args.outputModel, options, device=device)
+        sequences, cigars, args.outputModel, options, mesh=mesh,
+        device=device)
     return 0
 
 

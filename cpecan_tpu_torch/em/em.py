@@ -1,7 +1,7 @@
 """Baum-Welch EM training of the pair-HMM on PyTorch.
 
 Counterpart of cpecan_tpu/em/em.py (the cPecanEm jobTree pipeline,
-cPecanEm.py), run as one process on one device:
+cPecanEm.py):
 
   reference                               -> here
   ---------                               ----
@@ -9,12 +9,17 @@ cPecanEm.py), run as one process on one device:
     PerJob files (:128-145)
   shuffle-sample to maxAlignmentLength    -> same (:147-158)
     ToSample
-  scatter `cat chunk | cPecanRealign      -> bucketed batches of banded-FB
-    --outputExpectations` subprocesses       expectation passes on
-    (:178-180)                               ``device`` (the CUDA kernels
-                                             on a GPU)
+  scatter `cat chunk | cPecanRealign      -> chunks sharded over the
+    --outputExpectations` subprocesses       processes (process_shard);
+    (:178-180)                               bucketed batches of banded-FB
+                                             expectation passes on
+                                             ``device`` (the CUDA kernels
+                                             on a GPU) or sharded over a
+                                             DataMesh
   gather: sum expectation files (:184-188)-> per-pair counts summed on the
-                                             device, float64 on the host
+                                             device, float64 on the host,
+                                             then one all-gather sum over
+                                             the processes
   normalise / tie / keep emissions        -> identical host math (:188-199)
   model file rewritten per iteration      -> same (iteration-granular
     (:202)                                   checkpoint/resume)
@@ -25,9 +30,10 @@ cPecanEm.py), run as one process on one device:
 Tasks too long for the two-pass engine run one at a time through the
 exact streaming engine (ops/fb_streaming.py), as in cpecan_tpu.
 
-Several processes or devices (cpecan_tpu's mesh and multi-host
-reduction) are the data-parallel item of the port's roadmap (Queue 1
-item 10): a mesh request raises NotImplementedError.
+Several processes (after parallel.mesh.initialize_distributed) each run
+the same program on the whole corpus and keep their shard of the chunks;
+the counts are summed across the processes, so every process computes
+the same model, and only process 0 writes files.
 """
 
 from __future__ import annotations
@@ -50,16 +56,12 @@ from cpecan_tpu_torch.align.pairwise import (
 from cpecan_tpu_torch.io import cigar as cigar_io
 from cpecan_tpu_torch.ops import fb_batch, fb_parallel, fb_streaming
 from cpecan_tpu_torch.ops.band import construct_band, pad_band
+from cpecan_tpu_torch.parallel.mesh import (
+    all_sum_across_processes, pad_to_multiple, process_count, process_index,
+    process_shard)
 from cpecan_tpu_torch.utils import metrics
 from cpecan_tpu_torch.utils.retry import run_with_retries
 from cpecan_tpu_torch.utils.symbols import encode
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel EM (a mesh, several processes) is not ported yet "
-            "(ROADMAP Queue 1 item 10); run as one process on one device")
 
 
 @dataclasses.dataclass
@@ -191,13 +193,15 @@ def bucket_tasks(tasks: list, p: PairwiseAlignmentParameters) -> tuple:
     return buckets, streamed
 
 
-def bucket_arrays(items: list, P: int) -> tuple:
+def bucket_arrays(items: list, P: int, n_dev: int = 1) -> tuple:
     """One bucket's launch inputs (sx, sy, offsets, widths, lx, ly,
-    ragged_left, ragged_right) as numpy arrays, padded to a power of two
-    (few distinct launch shapes) with zero-length pairs."""
+    ragged_left, ragged_right) as numpy arrays, padded with zero-length
+    pairs to a power of two (few distinct launch shapes), then to a
+    multiple of the mesh's device count n_dev."""
     B_pad = 1
     while B_pad < len(items):
         B_pad *= 2
+    B_pad = pad_to_multiple(B_pad, n_dev)
     sx = np.zeros((B_pad, P), np.int32)
     sy = np.zeros((B_pad, P), np.int32)
     offsets = np.zeros((B_pad, P + 1), np.int32)
@@ -227,9 +231,12 @@ def expectation_step(sm: StateMachine, tasks: list,
     by padded shape (P, W) and each bucket, padded to a power of two with
     zero-length pairs, runs as one batch of expectation passes on
     ``device``; tasks too long for that run one at a time through the
-    exact streaming engine."""
-    _no_mesh(mesh)
-    device = torch.device(device)
+    exact streaming engine. With a mesh its devices take the place of
+    ``device``: each bucket is padded to a multiple of the device count
+    and sharded over the mesh, and streamed tasks run on its first
+    device."""
+    device = torch.device(device) if mesh is None else mesh.devices[0]
+    n_dev = 1 if mesh is None else mesh.size
     model = PairHMM.from_state_machine(sm).to(device)
     with metrics.stage("host_prep"):
         buckets, streamed = bucket_tasks(tasks, p)
@@ -253,13 +260,16 @@ def expectation_step(sm: StateMachine, tasks: list,
         B = len(items)
         metrics.add("dp_cells", sum(int(band.widths.sum()) for _, band in items))
         with metrics.stage("host_prep"):
-            args = bucket_arrays(items, P)
+            args = bucket_arrays(items, P, n_dev)
         lx, ly = args[4], args[5]
-        # the launches and the copies back (which wait for the device)
+        # the launches and the copies back (which wait for the device);
+        # with a mesh, each shard goes from the host to its device
         with metrics.stage("fb_pass"):
+            args = [torch.from_numpy(a) for a in args]
+            if mesh is None:
+                args = [a.to(device) for a in args]
             out = fb_batch.fb_pass_batch(
-                model, *[torch.from_numpy(a).to(device) for a in args],
-                mode="expectation", width=W)
+                model, *args, mode="expectation", width=W, mesh=mesh)
             out = {k: v.cpu().numpy().astype(np.float64)
                    for k, v in out.items()}
 
@@ -346,14 +356,24 @@ def expectation_maximisation(sequences: dict, cigars: list, output_model: str,
                              device="cuda") -> Hmm:
     """One full EM run (cPecanEm.py expectationMaximisation :107-215).
     Writes the model file after every iteration — the checkpoint/resume
-    granularity of the reference pipeline."""
-    _no_mesh(mesh)
+    granularity of the reference pipeline.
+
+    Multi-process (after parallel.mesh.initialize_distributed): every
+    process runs this same function on the full corpus; chunks are
+    sharded by process (the jobTree scatter analog), the per-process
+    counts are summed across the processes (the pipeline's only
+    collective, which a process without chunks joins too), and the
+    maximisation runs identically everywhere, so the in-memory model
+    never diverges. Only process 0 touches the model file."""
     rng = random.Random(options.seed)
     current = make_initial_model(options, rng)
-    current.save(output_model, precise=True)
+    is_writer = process_index() == 0
+    if is_writer:
+        current.save(output_model, precise=True)
 
     chunks = split_alignments(cigars, options.maxAlignmentLengthPerJob)
     chunks = sample_chunks(chunks, options.maxAlignmentLengthToSample, rng)
+    local_chunks = process_shard(chunks)
 
     p = options.pairwise_params()
     running = []
@@ -363,8 +383,9 @@ def expectation_maximisation(sequences: dict, cigars: list, output_model: str,
             sm = default_state_machine(options.model_type())
         else:
             sm = state_machine_from_hmm(current)
-        expectations = Hmm(options.model_type(), pseudo_expectation=1e-12)
-        for chunk in chunks:
+        pseudo = 1e-12
+        expectations = Hmm(options.model_type(), pseudo_expectation=pseudo)
+        for chunk in local_chunks:
             # one chunk = one retry unit (the jobTree Target analog:
             # cPecanEm's calculateExpectations jobs were re-run by jobTree
             # up to retryCount on failure, cPecanEm.py:423-426). Counts go
@@ -374,23 +395,37 @@ def expectation_maximisation(sequences: dict, cigars: list, output_model: str,
                 scratch = Hmm(options.model_type())
                 with metrics.stage("em_tasks"):
                     tasks = tasks_from_cigars(chunk, sequences, p)
-                expectation_step(sm, tasks, p, scratch, device=device)
+                expectation_step(sm, tasks, p, scratch, mesh=mesh,
+                                 device=device)
                 return scratch
             scratch = run_with_retries(one_chunk, "expectation chunk",
                                        attempts=options.retryCount + 1)
             expectations.transitions += scratch.transitions
             expectations.emissions += scratch.emissions
             expectations.likelihood += scratch.likelihood
+        if process_count() > 1:
+            trans, emis, like = all_sum_across_processes(
+                [expectations.transitions, expectations.emissions,
+                 np.asarray([expectations.likelihood])])
+            # pseudocounts were summed once per process; deduplicate
+            extra = (process_count() - 1) * pseudo
+            expectations.transitions = trans - extra
+            expectations.emissions = emis - extra
+            expectations.likelihood = float(like[0])
         new_model = maximisation_step(expectations, current, options)
         running.append(new_model.likelihood)
         current = new_model
-        new_model.save(output_model, precise=True)
+        if is_writer:
+            new_model.save(output_model, precise=True)
         if options.updateTheBand:
-            chunks = [realign_chunk(c, sequences, model=current, device=device)
-                      for c in chunks]
+            band_device = device if mesh is None else mesh.devices[0]
+            local_chunks = [realign_chunk(c, sequences, model=current,
+                                          device=band_device)
+                            for c in local_chunks]
 
     current.running_likelihoods = running
-    current.save(output_model, precise=True)
+    if is_writer:
+        current.save(output_model, precise=True)
     return current
 
 
@@ -398,11 +433,11 @@ def expectation_maximisation_trials(sequences: dict, cigars: list,
                                     output_model: str, options: EmOptions,
                                     mesh=None, device="cuda") -> Hmm:
     """Random-restart trials, keeping the max-likelihood model
-    (cPecanEm.py:217-242)."""
-    _no_mesh(mesh)
+    (cPecanEm.py:217-242). File outputs happen on process 0 only."""
+    is_writer = process_index() == 0
     if options.inputModel is not None or not options.randomStart:
         hmm = expectation_maximisation(sequences, cigars, output_model,
-                                       options, device=device)
+                                       options, mesh=mesh, device=device)
         trial_hmms = [hmm]
     else:
         trial_hmms = []
@@ -410,21 +445,23 @@ def expectation_maximisation_trials(sequences: dict, cigars: list,
             trial_options = dataclasses.replace(options, seed=options.seed + trial)
             trial_file = f"{output_model}_trial{trial}"
             trial_hmms.append(expectation_maximisation(
-                sequences, cigars, trial_file, trial_options, device=device))
-            if options.outputTrialHmms:
+                sequences, cigars, trial_file, trial_options, mesh=mesh,
+                device=device))
+            if options.outputTrialHmms and is_writer:
                 trial_hmms[-1].save(output_model + f"_{trial}", precise=True)
         best = max(trial_hmms, key=lambda h: h.likelihood)
-        best.save(output_model, precise=True)
-        for trial in range(options.trials):
-            trial_file = f"{output_model}_trial{trial}"
-            if os.path.exists(trial_file):
-                os.unlink(trial_file)
+        if is_writer:
+            best.save(output_model, precise=True)
+            for trial in range(options.trials):
+                trial_file = f"{output_model}_trial{trial}"
+                if os.path.exists(trial_file):
+                    os.unlink(trial_file)
         hmm = best
 
-    if options.outputXMLModelFile:
+    if options.outputXMLModelFile and is_writer:
         with open(options.outputXMLModelFile, "w") as fh:
             fh.write(ET.tostring(hmms_xml(trial_hmms), encoding="unicode"))
-    if options.blastScoringMatrixFile:
+    if options.blastScoringMatrixFile and is_writer:
         seqs = list(sequences.values())
         match_probs, gap_open, gap_extend = make_blast_scoring_matrix(hmm, seqs)
         with open(options.blastScoringMatrixFile, "w") as fh:

@@ -99,13 +99,15 @@ def reset_launch_counts() -> None:
 
 def nonzero_transitions(t_log) -> tuple:
     """Static (class, from, to) triples of active transitions from the
-    numpy/host copy of the (3, S, S) log transition tensor."""
+    numpy/host copy of the (3, S, S) log transition tensor. Only -inf
+    (probability 0) is inactive: a NaN stays in, as the kernels, whose
+    structure is compiled in, carry it too."""
     t = np.asarray(t_log)
     triples = []
     for c in range(3):
         for f in range(t.shape[1]):
             for to in range(t.shape[2]):
-                if np.isfinite(t[c, f, to]):
+                if not np.isneginf(t[c, f, to]):
                     triples.append((c, f, to))
     return tuple(triples)
 

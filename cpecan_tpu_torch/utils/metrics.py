@@ -3,10 +3,12 @@
 The reference's only observability is leveled logging plus a clock() call
 in its long test (SURVEY.md section 5). Here per-stage wall time and
 DP-cell counters are first-class: stages accumulate into a process-global
-registry and CLIs report on exit (CPECAN_TPU_METRICS=1).
+registry, CLIs report on exit (CPECAN_TPU_METRICS=1), and `trace()` wraps
+`torch.profiler` for host and device profiles.
 
-Counterpart of cpecan_tpu/utils/metrics.py without its JAX-only parts:
-the jit-cache count and the `jax.profiler` trace.
+Counterpart of cpecan_tpu/utils/metrics.py. Its jit-cache count, an
+early warning of shape drift, has no counterpart (the port compiles its
+kernels once); the kernel launch counts take its place in report_lines.
 
 Usage:
     with metrics.stage("fb_pass"):
@@ -21,6 +23,11 @@ import contextlib
 import os
 import threading
 import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+from cpecan_tpu_torch.ops import fb_wavefront
 
 _lock = threading.Lock()
 _times: dict = {}  # name -> [calls, seconds]
@@ -79,4 +86,20 @@ def report_lines() -> list:
     fb = snap["stages"].get("fb_pass")
     if cells and fb and fb["seconds"] > 0:
         lines.append(f"dp_cells_per_sec: {cells / fb['seconds']:,.0f}")
+    lines.append("kernel_launches: " + " ".join(
+        f"{k}={v}" for k, v in fb_wavefront.LAUNCHES.items()))
     return lines
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler trace of the enclosed block: host activity, and the
+    card's when CUDA is available, written to log_dir as a Chrome /
+    TensorBoard trace (``*.pt.trace.json``); the counterpart of
+    jax.profiler.trace."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

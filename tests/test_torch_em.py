@@ -197,13 +197,6 @@ def test_em_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     fasta, cigar_file = _corpus_files(tmp_path)
     argv = ["--sequences", fasta, "--alignments", cigar_file,
             "--outputModel", str(tmp_path / "m.hmm")]
-    for extra in (["--dataParallel"], ["--numProcesses", "2"],
-                  ["--coordinator", "localhost:1234"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port_cli.main(argv + extra + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_em.expectation_step(state_machine5(), [], _P, PortHmm(
-            StateMachineType.fiveState), mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli.main(argv)

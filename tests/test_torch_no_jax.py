@@ -74,4 +74,5 @@ def test_importing_every_module_loads_no_jax():
     assert {"cpecan_tpu_torch.cli.realign", "cpecan_tpu_torch.cli.em",
             "cpecan_tpu_torch.cli.align", "cpecan_tpu_torch.cli.modify_hmm",
             "cpecan_tpu_torch.em.modify_hmm",
-            "cpecan_tpu_torch.msa.aligner"} <= set(mods)
+            "cpecan_tpu_torch.msa.aligner",
+            "cpecan_tpu_torch.parallel.mesh"} <= set(mods)
