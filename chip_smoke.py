@@ -58,14 +58,21 @@ Phases (any failure raises, so the exit code is non-zero):
      and 32 short ones (segmented exp kernel), the exact engine's counts
      and likelihood on one long chunk against the two-pass kernels', and
      card against CPU (2 iterations) with every chunk made to stream;
- 12. wide bands (W > 4096, the kernels' wide variants): the batch path's
+ 12. wide bands (W > 4096, the kernels' wide variants): first F2, the
+     backward kernels (shared-memory, cluster and global-scratch) against
+     their plain versions on totals of 0, inf and NaN; the batch path's
      three kernels on a full band of 1 kb pairs padded out to W=4352 and
-     to an off-grid 8200 against their plain versions, with times; a record with an
-     anchor-free 4.5 kb gap through the realign CLI (parallel engine) and
-     one EM iteration (exact engine) with --splitMatrixBiggerThanThis
-     5000, launch counts reset before and read after each, the widest
-     window launch of each site against its plain version, and the
-     record's pairs against the plain versions' on the same card tensors;
+     to an off-grid 8200 against their plain versions, with times, bwd
+     and exp on the cluster kernel and again on the global-scratch kernel
+     (in turns), and CPECAN_TPU_DEBUG=1 on a NaN transition there; a
+     record with an anchor-free 4.5 kb gap through the realign CLI
+     (parallel engine) and one EM iteration (exact engine) with
+     --splitMatrixBiggerThanThis 5000, launch counts reset before and
+     read after each, the launch plan of every wide launch (each must
+     run a cluster), the widest window launch of each site against its
+     plain version and against the global-scratch kernel (times in
+     turns), and the record's pairs against the plain versions' on the
+     same card tensors;
  13. MSA and align: make_alignment (2 spanning trees, the native
      progressive merge) on BASELINE config #5's 100 evolved 1 kb
      fragments (bench.py:570-575's generator), with its stage split and
@@ -162,13 +169,16 @@ def phase_device():
 def _instantiation(kernel, args):
     """A kernel instantiation's name from its mangled template arguments:
     fwd, bwd and exp <S,slots,ring|direct,batch|window>,
-    fwd_wide<S,batch|window>, back_wide<S,bwd|exp,batch|window>."""
+    fwd_wide<S,batch|window>, back_wide<S,bwd|exp,batch|window>,
+    back_cluster<S,slots,bwd|exp,batch|window>."""
     vals = [v for _, v in re.findall(r"L([ib])(\d+)E", args)]
     vals[-1] = "window" if vals[-1] == "1" else "batch"
     if kernel in ("wavefront_fwd", "wavefront_bwd", "wavefront_exp"):
         vals[2] = "ring" if vals[2] == "1" else "direct"
     if kernel == "wavefront_back_wide":
         vals[1] = "exp" if vals[1] == "1" else "bwd"
+    if kernel == "wavefront_back_cluster":  # <S, slots, bwd|exp, ...>
+        vals[2] = "exp" if vals[2] == "1" else "bwd"
     return f"{kernel}<{','.join(vals)}>"
 
 
@@ -380,10 +390,10 @@ def _bound(B, R, W, S, nz, kernel, window=False):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _check_exp(wf, hmm, args, W, name, card, reps=(10, 3)):
+def _check_exp(wf, hmm, args, W, name, card, reps=10):
     """wavefront_exp against exp_reference on the card (same inputs), and
-    its mb/total_raw against wavefront_bwd's; CUDA-event medians of
-    reps[0] kernel and reps[1] plain calls."""
+    its mb/total_raw against wavefront_bwd's; the CUDA-event median of
+    ``reps`` kernel calls and the time of the one plain call."""
     pre = wf.precompute(hmm, *args, width=W)
     t = hmm.t_prob_host
     F, bv, mf = wf.fwd(t, pre["ex"], pre["ey"], pre["em"], pre["a"], pre["b1"],
@@ -398,8 +408,7 @@ def _check_exp(wf, hmm, args, W, name, card, reps=(10, 3)):
                             F, bv, pre["abw"], pre["c1"], pre["c0"],
                             pre["bm1"], pre["bm0"], pre["pm"], pre["end_row"],
                             hmm.nz)
-    want = wf.exp_reference(*ein)
-    torch.cuda.synchronize()
+    want, plain_ms = _timed(lambda: wf.exp_reference(*ein))
     L = (args[4].long() + args[5].long()).cpu()
     rows = torch.arange(mf.shape[1])[None, :]
     keep = (rows >= 1) & (rows <= L[:, None])
@@ -420,8 +429,7 @@ def _check_exp(wf, hmm, args, W, name, card, reps=(10, 3)):
         torch.testing.assert_close(g, b_, rtol=0, atol=1e-5, msg=k + " vs bwd")
         errs[k] = float((g - w_).abs().max())
         errs[k + "_is_bwds"] = bool(torch.equal(g, b_))
-    ms = {"exp": _median_ms(lambda: wf.exp(*ein), reps[0]),
-          "exp_plain": _median_ms(lambda: wf.exp_reference(*ein), reps[1])}
+    ms = {"exp": _median_ms(lambda: wf.exp(*ein), reps), "exp_plain": plain_ms}
     B, R, Wd = pre["ex"].shape
     log(f"exp kernel {name}: B={B} P={R - 1} W={Wd} S={hmm.state_number}; "
         f"max abs err " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float)
@@ -454,9 +462,6 @@ def phase_kernels(card):
 
         pre = wf.precompute(hmm, *args, width=W)
         t = hmm.t_prob_host
-        # the plain versions take seconds a call; the headline's times go
-        # into the summary, the other batches' are one call each
-        plain_reps = 3 if name.startswith("a_") else 1
         fin = (t, pre["ex"], pre["ey"], pre["em"], pre["a"], pre["b1"],
                pre["b0"], pre["F0"], hmm.nz)
         F, bv, _ = wf.fwd(*fin)
@@ -465,8 +470,9 @@ def phase_kernels(card):
                 pre["pm"], pre["end_row"], hmm.nz, mode)
         ms = {"fwd": _median_ms(lambda: wf.fwd(*fin), 10),
               "bwd": _median_ms(lambda: wf.bwd(*bin_), 10),
-              "fwd_plain": _median_ms(lambda: wf.fwd_reference(*fin), plain_reps),
-              "bwd_plain": _median_ms(lambda: wf.bwd_reference(*bin_), plain_reps)}
+              # the plain versions take seconds a call: one call each
+              "fwd_plain": _median_ms(lambda: wf.fwd_reference(*fin), 1),
+              "bwd_plain": _median_ms(lambda: wf.bwd_reference(*bin_), 1)}
         direct = _bwd_direct(bin_, {}, hmm.state_number, W, 10, wf.bwd(*bin_))
         kern_s = (ms["fwd"] + ms["bwd"]) / 1e3
         plain_s = (ms["fwd_plain"] + ms["bwd_plain"]) / 1e3
@@ -491,8 +497,7 @@ def phase_kernels(card):
         del got, want, pre, F, bv
         torch.cuda.empty_cache()
         if name.startswith(("a_", "c_")):
-            ems, err, shape = _check_exp(wf, hmm, args, W, name, card,
-                                         reps=(10, plain_reps))
+            ems, err, shape = _check_exp(wf, hmm, args, W, name, card)
             summary["exp"]["err"] = max(summary["exp"]["err"], err)
             if name.startswith("a_"):
                 summary["exp"]["ms"] = ems["exp"]
@@ -508,7 +513,7 @@ def phase_kernels(card):
     if bt["W"] <= wf.EXP_SHARED_WIDTH:
         raise AssertionError(f"wide batch has W={bt['W']}")
     _, err, _ = _check_exp(wf, hmm, bt["args"], bt["W"],
-                           "f_wide_full_band_B4_2500", card, reps=(3, 1))
+                           "f_wide_full_band_B4_2500", card, reps=3)
     summary["exp"]["err"] = max(summary["exp"]["err"], err)
     torch.cuda.empty_cache()
     for k, v in summary.items():
@@ -969,7 +974,7 @@ def phase_em_kernel(seqs, cigars, card, summary):
     args = [torch.from_numpy(a).cuda() for a in em_mod.bucket_arrays(items, P)]
     hmm = PairHMM.from_state_machine(state_machine5()).cuda()
     _, err, _ = _check_exp(wf, hmm, args, W, f"em_batch_{len(items)}_tasks",
-                           card, reps=(10, 1))
+                           card)
     summary["exp"]["err"] = max(summary["exp"]["err"], err)
     torch.cuda.empty_cache()
 
@@ -1197,8 +1202,7 @@ def _check_site(site, entry, S, nz, what, card, reps=5):
     kern = getattr(wf, kind)
     plain = getattr(wf, f"{kind}_reference")
     got = _flat(kern(*args, site=site, **kw))
-    want = _flat(plain(*args, **kw))
-    torch.cuda.synchronize()
+    want, plain_ms = _timed(lambda: _flat(plain(*args, **kw)))
     err = 0.0
     for (name, g), (_, w_) in zip(got, want):
         g, w_ = g.float().cpu(), w_.float().cpu()
@@ -1215,7 +1219,6 @@ def _check_site(site, entry, S, nz, what, card, reps=5):
                                    msg=f"{site} {name}")
         err = max(err, float((g - w_).abs().max()) if g.numel() else 0.0)
     ms = _median_ms(lambda: kern(*args, site=site, **kw), reps)
-    plain_ms = _median_ms(lambda: plain(*args, **kw), 1)
     B, R, W = args[1].shape
     bound = _bound(B, R, W, S, nz, kind, window=True)
     log(f"  {site} at {what}: B={B} R={R} W={W}; kernel {ms:.3f} ms "
@@ -1794,6 +1797,164 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
+@contextlib.contextmanager
+def _cluster_limit(cluster):
+    """wavefront_back_wide's cluster size for the block (0: the
+    global-scratch kernel at every width)."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    before = wf.set_cluster_limit(cluster)
+    try:
+        yield
+    finally:
+        wf.set_cluster_limit(before)
+
+
+def _plan_text(plan, W):
+    return (f"cluster {plan['cluster']} x {plan['threads']} threads of "
+            f"{plan['slots']} slots, slices of {plan['slice']} slots, "
+            f"{plan['smem']} B shared memory per CTA"
+            if plan["cluster"] else f"cluster 0 (global-scratch kernel) at W={W}")
+
+
+@contextlib.contextmanager
+def _wide_plans():
+    """Every bwd and exp wrapper call at W > MAX_KERNEL_WIDTH while the
+    block runs: (site, B, R, W, its launch plan), in call order."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    saved = wf.bwd, wf.exp
+    seen = []
+
+    def wrap(fn, kind):
+        def call(*args, site=kind, **kw):
+            B, R, W = args[1].shape
+            if W > wf.MAX_KERNEL_WIDTH:
+                S = args[7 if kind == "exp" else 5].shape[2]
+                seen.append((site, B, R, W, wf.back_wide_plan(S, W, kind == "exp")))
+            return fn(*args, site=site, **kw)
+        return call
+
+    wf.bwd, wf.exp = wrap(saved[0], "bwd"), wrap(saved[1], "exp")
+    try:
+        yield seen
+    finally:
+        wf.bwd, wf.exp = saved
+
+
+def _log_wide_plans(seen, what):
+    """Logs each wide launch's plan; fails where one ran no cluster."""
+    for site, B, R, W, plan in seen:
+        log(f"  {what}: {site} B={B} R={R} W={W}: {_plan_text(plan, W)}")
+        if not plan["cluster"]:
+            raise AssertionError(f"{what}: {site} at W={W} ran no cluster")
+
+
+def _special_back_inputs(rng, hmm, B, R, W, kernel):
+    """bwd's or exp's arguments (card tensors) at random, as
+    tests/test_torch_nan.py makes them: row 3 with F zero and no bridge
+    (total 0), one F value inf on row 7 (total inf) and one NaN on row 11
+    (total NaN)."""
+    S = hmm.state_number
+
+    def unif(*shape, lo=0.0):
+        return torch.from_numpy(rng.uniform(lo, 1.0, shape).astype(np.float32)).cuda()
+
+    def bits(*shape):
+        return torch.from_numpy((rng.random(shape) < 0.5).astype(np.int8)).cuda()
+
+    row = np.where(rng.random((B, R)) < 0.7, 16, 0)
+    row[np.arange(B), rng.integers(R // 2, R, B)] |= 8
+    pm = torch.from_numpy((rng.integers(0, 8, (B, R, W)) | row[..., None])
+                          .astype(np.int8)).cuda()
+    efx, efy, efm, em = (unif(B, R, W, lo=0.1) for _ in range(4))
+    F, bv, sel = unif(B, R, S, W), unif(B, R, W), [bits(B, R) for _ in range(5)]
+    end_row = unif(B, S, W)
+    F[:, 3] = 0.0
+    pm[:, 3] &= ~16
+    F[:, 7, 1, 5] = float("inf")
+    F[:, 11, 0, 9] = float("nan")
+    t = hmm.t_prob_host
+    if kernel == "bwd":
+        return (t, efx, efy, efm, em, F, bv, *sel, pm, end_row, hmm.nz,
+                "posterior_all")
+    ex, ey = unif(B, R, W, lo=0.1), unif(B, R, W, lo=0.1)
+    fsel = [bits(B, R) for _ in range(3)]
+    adj = [0.5 + unif(B, R) for _ in range(2)]
+    sym = [torch.from_numpy(rng.integers(0, 6, (B, R, W)).astype(np.int8)).cuda()
+           for _ in range(2)]
+    return (t, efx, efy, efm, em, ex, ey, F, bv, *sel, *fsel, pm, end_row,
+            *adj, *sym, hmm.nz)
+
+
+def _nan_totals(card):
+    """F2: bwd and exp (shared-memory variants at W=128), the cluster
+    kernel and the global-scratch kernel (W=4224) against their plain
+    versions on rows whose per-diagonal total is 0, inf and NaN: NaN and
+    inf exactly where the plain versions have them, the rest within the
+    usual tolerances."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    hmm = PairHMM.from_state_machine(state_machine5()).cuda()
+    for kernel in ("bwd", "exp"):
+        for W, cluster in ((128, None), (4224, 8), (4224, 0)):
+            args = _special_back_inputs(np.random.default_rng(W), hmm, 2, 17, W,
+                                        kernel)
+            with (_cluster_limit(cluster) if cluster is not None
+                  else contextlib.nullcontext()):
+                if cluster is not None and \
+                        wf.back_wide_plan(5, W, kernel == "exp")["cluster"] != cluster:
+                    raise AssertionError(f"F2 {kernel}: plan is not cluster {cluster}")
+                got = _flat(getattr(wf, kernel)(*args))
+            want = _flat(getattr(wf, f"{kernel}_reference")(*args))
+            torch.cuda.synchronize()
+            what = f"F2 {kernel} W={W} cluster={cluster}"
+            for (name, g), (_, w_) in zip(got, want):
+                g, w_ = g.cpu(), w_.cpu()
+                if not (torch.equal(g.isnan(), w_.isnan())
+                        and torch.equal(g.isinf(), w_.isinf())):
+                    raise AssertionError(f"{what} {name}: NaN/inf elsewhere "
+                                         f"than the plain version's")
+                key = _OUT_KEYS[kernel].get(name)
+                tol = ((EXP_RTOL, 1e-7) if key == "counts" else (0.0, 1e-5)
+                       if key == "exp_rows" else TOLERANCES.get(key, (1e-4, 1e-6)))
+                torch.testing.assert_close(g, w_, rtol=tol[0], atol=tol[1],
+                                           equal_nan=True, msg=f"{what} {name}")
+            tot = dict(got)["out.2" if kernel == "bwd" else "out.3"].cpu()
+            if not (tot[:, 3].eq(0).all() and tot[:, 7].isposinf().all()
+                    and tot[:, 11].isnan().all()):
+                raise AssertionError(f"{what}: total_raw rows 3, 7, 11 are "
+                                     f"{tot[:, [3, 7, 11]].tolist()}")
+            log(f"F2 {kernel} at W={W} ({'shared-memory variant' if cluster is None else _plan_text(wf.back_wide_plan(5, W, kernel == 'exp'), W) if cluster else 'global-scratch kernel'}): "
+                f"total_raw 0, inf and NaN on the rows the plain version has "
+                f"them, NaN/inf patterns of every output equal ({card})")
+
+
+def _nan_debug_on_card(bt, hmm, card):
+    """F2: CPECAN_TPU_DEBUG=1 on a NaN transition (t[1, 0, 0]) through
+    fb_batch on a wide batch (the cluster kernel) raises the message the
+    CPU raises."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM
+    from cpecan_tpu_torch.ops import fb_batch
+
+    bad = {k: getattr(hmm, k).cpu().numpy().copy() for k, _ in hmm.named_buffers()}
+    bad["t"][1, 0, 0] = np.nan
+    bad = PairHMM(bad).cuda()
+    os.environ["CPECAN_TPU_DEBUG"] = "1"
+    try:
+        fb_batch.fb_pass_batch(bad, *bt["args"], mode="posterior_match",
+                               width=bt["W"])
+    except RuntimeError as e:
+        if "fb debug: non-finite per-diagonal total" not in str(e):
+            raise
+        log(f"F2 debug on a NaN transition at W={bt['W']}: raised {e} ({card})")
+    else:
+        raise AssertionError("a NaN transition passed the debug checks")
+    finally:
+        os.environ.pop("CPECAN_TPU_DEBUG", None)
+
+
 def _wide_batch(card, sites):
     """The batch path's three kernels at W > MAX_KERNEL_WIDTH (the wide
     variants) against their plain versions on the same card tensors, with
@@ -1820,28 +1981,58 @@ def _wide_batch(card, sites):
         B, R, _ = pre["ex"].shape
         wf.reset_launch_counts()
         res = {}
+
+        def errs(k, got, want):
+            if k == "fwd":
+                torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
+                return max(_max_err({"mf": got[2]}, {"mf": want[2]}, L).values())
+            if k == "bwd":
+                keys = ("post_match", "post_gap_x", "post_gap_y")
+                return max(_max_err(
+                    {**dict(zip(keys, got[0])), "mb": got[1], "total_raw": got[2]},
+                    {**dict(zip(keys, want[0])), "mb": want[1], "total_raw": want[2]},
+                    L).values())
+            return _exp_errs(got, want, L)[0]
+
         for k, args in (("fwd", fin), ("bwd", bin_), ("exp", ein)):
             got = getattr(wf, k)(*args)
             ms = _median_ms(lambda: getattr(wf, k)(*args), 3)
             want, plain_ms = _timed(lambda: getattr(wf, f"{k}_reference")(*args))
-            if k == "fwd":
-                err = max(_max_err({"mf": got[2]}, {"mf": want[2]}, L).values())
-                torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
-            elif k == "bwd":
-                keys = ("post_match", "post_gap_x", "post_gap_y")
-                err = max(_max_err(
-                    {**dict(zip(keys, got[0])), "mb": got[1], "total_raw": got[2]},
-                    {**dict(zip(keys, want[0])), "mb": want[1], "total_raw": want[2]},
-                    L).values())
-            else:
-                err = _exp_errs(got, want, L)[0]
+            err = errs(k, got, want)
             res[k] = (err, ms, plain_ms, _bound(B, R, W, S, hmm.nz, k))
+            variant = ""
+            if k != "fwd":
+                # the cluster variant ran; the global-scratch kernel on the
+                # same inputs, against the same plain outputs, in turns
+                variant = _plan_text(wf.back_wide_plan(S, W, k == "exp"), W)
+                if "cluster 0" in variant:
+                    raise AssertionError(f"wide {k} at W={W}: no cluster ({variant})")
+                with _cluster_limit(0):
+                    g_err = errs(k, getattr(wf, k)(*args), want)
+                    g_ms = _median_ms(lambda: getattr(wf, k)(*args), 3)
+                ms2 = _median_ms(lambda: getattr(wf, k)(*args), 3)
+                with _cluster_limit(0):
+                    g_ms2 = _median_ms(lambda: getattr(wf, k)(*args), 3)
+                variant = (f"; {variant}; global-scratch kernel {g_ms:.3f} / "
+                           f"{g_ms2:.3f} ms against cluster {ms:.3f} / {ms2:.3f} "
+                           f"(in turns), its max abs err {g_err:.3g}")
+                # the plan's cluster size against a smaller one (where the
+                # band fits a cluster of 4), for the choice of 8
+                with _cluster_limit(4):
+                    plan4 = wf.back_wide_plan(S, W, k == "exp")
+                    if plan4["cluster"]:
+                        errs(k, getattr(wf, k)(*args), want)
+                        c4_ms = _median_ms(lambda: getattr(wf, k)(*args), 3)
+                        variant += (f"; {_plan_text(plan4, W)}: {c4_ms:.3f} ms "
+                                    f"({1e3 * c4_ms / R:.2f} us per diagonal)")
             log(f"wide {k}: B={B} R={R} W={W}; kernel {ms:.3f} ms "
                 f"({1e3 * ms / R:.2f} us per diagonal), plain {plain_ms:.1f} ms, "
                 f"bound {res[k][3][0]:.4f} ms ({res[k][3][1]}), max abs err "
-                f"{err:.3g} ({card})")
+                f"{err:.3g} ({card}){variant}")
         if any(wf.LAUNCHES[f"wide_{k}"] <= 0 for k in ("fwd", "bwd", "exp")):
             raise AssertionError(f"wide variants not launched: {wf.LAUNCHES}")
+        if width == WIDE_WIDTHS[0]:
+            _nan_debug_on_card(bt, hmm, card)
         for k, (err, ms, plain_ms, bound) in res.items():
             v = sites[f"wide_{k}"]
             v["err"] = max(v["err"], err)
@@ -1849,6 +2040,33 @@ def _wide_batch(card, sites):
                 v.update(ms=ms, plain_ms=plain_ms, bound=bound)
         del bt, pre, ein, fin, bin_
         torch.cuda.empty_cache()
+
+
+def _global_variant(site, entry, ms, card):
+    """The global-scratch kernel on a captured wide launch's inputs: its
+    outputs against the cluster kernel's (the kernel tests' tolerances)
+    and its time beside the cluster's (``ms``), in turns."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    kind = SITES[site][0]
+    args, kw = entry
+    run = lambda: getattr(wf, kind)(*args, site=site, **kw)
+    cl = _flat(run())
+    with _cluster_limit(0):
+        gl = _flat(run())
+        g_ms = _median_ms(run, 3)
+    ms2 = _median_ms(run, 3)
+    torch.cuda.synchronize()
+    for (name, c), (_, g) in zip(cl, gl):
+        key = _OUT_KEYS[kind].get(name)
+        tol = ((EXP_RTOL, 1e-6) if key == "counts" else (0.0, 1e-5)
+               if key == "exp_rows" else TOLERANCES.get(key, (1e-4, 1e-6)))
+        torch.testing.assert_close(c, g, rtol=tol[0], atol=tol[1],
+                                   msg=f"{site} cluster vs global {name}")
+    B, R, W = args[1].shape
+    log(f"    the global-scratch kernel on the same inputs (B={B} R={R} W={W}): "
+        f"{g_ms:.3f} ms ({1e3 * g_ms / R:.2f} us per diagonal) against the "
+        f"cluster's {ms:.3f} / {ms2:.3f} ms (in turns; {card})")
 
 
 def _gap_record(seed):
@@ -1882,6 +2100,7 @@ def phase_wide(card, tmp, sites):
     from cpecan_tpu_torch.models.state_machine import state_machine5
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
+    _nan_totals(card)
     _wide_batch(card, sites)
     seqs, cigars = _gap_record(21)
     fasta, cig = f"{tmp}/gap.fa", f"{tmp}/gap.cigar"
@@ -1890,7 +2109,7 @@ def phase_wide(card, tmp, sites):
     width = lambda args: args[1].shape[-1]
     torch.cuda.synchronize()
     wf.reset_launch_counts()
-    with _capture(("par_fwd", "par_bwd"), width) as kept:
+    with _capture(("par_fwd", "par_bwd"), width) as kept, _wide_plans() as seen:
         t0 = time.perf_counter()
         out = _realign(fasta, cigars, "cuda", GAP_SPLIT)
         torch.cuda.synchronize()
@@ -1900,6 +2119,9 @@ def phase_wide(card, tmp, sites):
         if not launches.get(k):
             raise AssertionError(f"{k} not launched by the gap record: {launches}")
         sites[k]["launches"] = launches[k]
+    if launches.get("cluster_bwd") != launches["wide_bwd"]:
+        raise AssertionError(f"wide bwd launches without a cluster: {launches}")
+    _log_wide_plans(seen, "gap record realign")
     _check_cigars(out, cigars)
     if set(kept) != {"par_fwd", "par_bwd"}:
         raise AssertionError(f"the gap record did not stream: {launches}")
@@ -1907,10 +2129,12 @@ def phase_wide(card, tmp, sites):
         f"an anchor-free {GAP_MIDDLE} bp gap, {' '.join(GAP_SPLIT)}): {dt:.2f} s "
         f"on {card}; launches {launches}")
     for site, entry in kept.items():
-        e, *_ = _check_site(site, entry, 5, wf.KERNEL_NZ[5],
-                            "the gap record's widest window", card, reps=3)
+        e, ms, *_ = _check_site(site, entry, 5, wf.KERNEL_NZ[5],
+                                "the gap record's widest window", card, reps=3)
         k = f"wide_{SITES[site][0]}"
         sites[k]["err"] = max(sites[k]["err"], e)
+        if SITES[site][0] == "bwd":
+            _global_variant(site, entry, ms, card)
 
     p = realign.alignment_parameters(
         realign.make_parser().parse_args([fasta] + GAP_SPLIT))
@@ -1928,7 +2152,7 @@ def phase_wide(card, tmp, sites):
 
     torch.cuda.synchronize()
     wf.reset_launch_counts()
-    with _capture(("seg_exp",), width) as kept:
+    with _capture(("seg_exp",), width) as kept, _wide_plans() as seen:
         t0 = time.perf_counter()
         model = _em(fasta, cig, f"{tmp}/gap.hmm", "cuda",
                     ["--iterations", "1"] + GAP_SPLIT)
@@ -1938,14 +2162,18 @@ def phase_wide(card, tmp, sites):
     if not launches.get("wide_exp") or "seg_exp" not in kept:
         raise AssertionError(f"EM on the gap record launched no wide, streamed "
                              f"exp: {launches}")
+    if launches.get("cluster_exp") != launches["wide_exp"]:
+        raise AssertionError(f"wide exp launches without a cluster: {launches}")
+    _log_wide_plans(seen, "gap record em")
     sites["wide_exp"]["launches"] = launches["wide_exp"]
     if not np.isfinite(model.likelihood):
         raise AssertionError(f"gap record EM likelihood {model.likelihood}")
     log(f"gap record em, 1 iteration: {dt:.2f} s on {card}; likelihood "
         f"{model.likelihood}; launches {launches}")
-    e, *_ = _check_site("seg_exp", kept["seg_exp"], 5, wf.KERNEL_NZ[5],
-                        "the gap record's widest exp window", card, reps=3)
+    e, ms, *_ = _check_site("seg_exp", kept["seg_exp"], 5, wf.KERNEL_NZ[5],
+                            "the gap record's widest exp window", card, reps=3)
     sites["wide_exp"]["err"] = max(sites["wide_exp"]["err"], e)
+    _global_variant("seg_exp", kept["seg_exp"], ms, card)
     torch.cuda.empty_cache()
 
 
@@ -2438,7 +2666,7 @@ def _dp_debug(card):
         try:
             call(bad, "posterior_match")
         except RuntimeError as e:
-            if "fb debug" not in str(e):
+            if "fb debug: non-finite per-diagonal total" not in str(e):
                 raise
             log(f"data parallel (d) NaN transition t[1, 0, 0]: raised {e}; "
                 f"finite share of the unchecked outputs: {finite}")

@@ -39,7 +39,9 @@
 // grid steps in VMEM on the TPU live here in shared memory (F_{k-1};
 // B_{k+1}, B_{k+2}, bridgevec_{k+1}) and registers (F_{k-2}'s operands,
 // 1/m, 1/mb, em_{k+1}). Bands wider than 4096 slots, whose carries do not
-// fit in shared memory, run the wide variants (wavefront_fwd_wide,
+// fit in one block's shared memory, run the wide variants
+// (wavefront_fwd_wide, and for bwd and exp wavefront_back_cluster, a
+// thread-block cluster per pair, or above its capacity
 // wavefront_back_wide; see there). The neighbour
 // shifts in {-1, 0, +1} are shared-memory reads of slot j +- 1 with zero
 // fill outside [0, W), like the Pallas _shift_l/_shift_r. The row max
@@ -158,6 +160,13 @@ constexpr int kRingThreads = 480;      // its compute threads beside the produce
 constexpr size_t kSmemPerBlock = 232448;  // Hopper: 227 KB per block
 constexpr size_t kStaticSmem = 1024;      // room for the static shared arrays
 constexpr int kNormEvery = 4;
+// wavefront_back_cluster: CTAs per cluster (the portable most), and the
+// most threads per CTA with 2 (exp only) and with 4 band slots per thread
+// (so a slice holds at most 4 * kClusterThreads4 slots and the widest
+// band it takes is kClusterMax times that)
+constexpr int kClusterMax = 8;
+constexpr int kClusterThreads2 = 512;
+constexpr int kClusterThreads4 = 384;
 
 constexpr int kPmMatch = 1;
 constexpr int kPmGapX = 2;
@@ -296,6 +305,21 @@ __device__ __forceinline__ float nb(const float* row, int j, int W) {
 // row[j] of a row that may be absent (null: zero).
 __device__ __forceinline__ float nbz(const float* row, int j, int W) {
   return row ? nb(row, j, W) : 0.f;
+}
+
+// 1/total and log(total) of a per-diagonal total, masked as the Pallas
+// bodies mask them (cpecan_tpu/ops/fb_wavefront.py:522-533) and as
+// _bwd_sweep does: with ok = [total > 0], invt = ok / (total + (1 - ok))
+// and log = log(total + (1 - ok)) * ok. A total of 0 gives 0 and 0, inf
+// gives 0 and inf, a positive total 1/total and log(total) exactly, and
+// NaN gives NaN in both (a select on `total > 0` would write 0).
+struct TotalTerms {
+  float invt, log;
+};
+
+__device__ __forceinline__ TotalTerms total_terms(float total) {
+  const float ok = total > 0.f ? 1.f : 0.f;
+  return {ok / (total + (1.f - ok)), logf(total + (1.f - ok)) * ok};
 }
 
 // Block-wide max; blockDim.x is a multiple of 32 and every thread of
@@ -1032,11 +1056,11 @@ __global__ void __launch_bounds__(kRing ? kRingThreads + 32 : kMaxThreads)
       dot += red[2][k];
     }
     const float total = r * (dot + (bvalid ? bridge : 0.f));
-    const bool ok = total > 0.f;
-    const float invt = ok ? 1.f / total : 0.f;
+    const TotalTerms tt = total_terms(total);
+    const float invt = tt.invt;
     if (tid == 0) {
       p.mb[row] = mbv;
-      p.tot[row] = ok ? logf(total) : 0.f;
+      p.tot[row] = tt.log;
     }
 
 #pragma unroll
@@ -1377,11 +1401,11 @@ __global__ void __launch_bounds__(kRing ? kExpMaxThreads + 32
       dot += red[2][k];
     }
     const float total = r * (dot + (bvalid ? bridge : 0.f));
-    const bool ok = total > 0.f;
-    const float invt = ok ? 1.f / total : 0.f;
+    const TotalTerms tt = total_terms(total);
+    const float invt = tt.invt;
     if (tid == 0) {
       p.mb[row] = mbv;
-      p.tot[row] = ok ? logf(total) : 0.f;
+      p.tot[row] = tt.log;
     }
 
 #pragma unroll
@@ -1484,7 +1508,9 @@ __global__ void __launch_bounds__(kRing ? kExpMaxThreads + 32
 // thread rescales its own slots in place, and a block barrier ends the
 // diagonal. The arithmetic is that of the shared-memory variants: the
 // same rescale schedule, mf / mb exactly the applied scale, nb()'s zero
-// fill. A simple kernel that is right: its speed is not worked on.
+// fill. Simple kernels that are right: their speed is not worked on.
+// wavefront_back_wide is the declared route only above the capacity of
+// wavefront_back_cluster (below), which does its work on chip.
 
 template <int S, bool kWindow>
 __global__ void __launch_bounds__(kWideThreads) wavefront_fwd_wide(
@@ -1691,11 +1717,11 @@ __global__ void __launch_bounds__(kExp ? kExpWideThreads : kWideThreads)
       dot += red[2][k];
     }
     const float total = r * (dot + (bvalid ? bridge : 0.f));
-    const bool ok = total > 0.f;
-    const float invt = ok ? 1.f / total : 0.f;
+    const TotalTerms tt = total_terms(total);
+    const float invt = tt.invt;
     if (tid == 0) {
       p.mb[row] = mbv;
-      p.tot[row] = ok ? logf(total) : 0.f;
+      p.tot[row] = tt.log;
     }
 
     // exp: the forward neighbours of the counts (see wavefront_exp)
@@ -1791,6 +1817,476 @@ __global__ void __launch_bounds__(kExp ? kExpWideThreads : kWideThreads)
       for (int c = 0; c < nt; ++c) s += rowp[c];
       p.emis[(size_t)b * S * 16 + k] = s;
     }
+  }
+}
+
+// ------------------------------------------------------------ clusters
+//
+// wavefront_back_cluster: wavefront_back_wide's work (bwd, and exp with
+// kExp) for bands wider than kMaxWidth, on a thread-block cluster of C
+// CTAs per pair that keeps B on chip. The global-scratch kernel above was
+// bound by one SM per pair and an L2 round trip for every neighbour read
+// of B (17 and 32 us per diagonal at W = 4352); here C SMs share a pair,
+// and no row of B leaves shared memory but the window's carries.
+//   - CTA r of a pair's cluster owns the slots [r * Wc, (r + 1) * Wc),
+//     K (2 or 4) of them per thread (j = r * Wc + tid + q * nt). Its
+//     shared memory holds three (S, Wc) rows of raw B, the rows of
+//     diagonals k, k+1 and k+2 by k mod 3.
+//   - The neighbour shifts are in {-1, 0, +1}: a slot at the slice's edge
+//     reads the one slot past it from the peer's row through distributed
+//     shared memory (mapa), zero outside [0, W) as nb() fills.
+//   - Rows are stored raw; every reader multiplies by the row's scale
+//     (raw * r, the same fp32 product the other kernels store, so B is
+//     their B bit for bit). All CTAs hold every scale, so a peer scales
+//     a halo value itself, and no barrier separates the rescale from the
+//     next diagonal's reads. The at_end zeroing of B_{k+1} is a flag on
+//     the row's reads (z2) for the same reason.
+//   - The per-diagonal reduction (row max, bridge, F . B dot): each warp
+//     reduces its slots by shuffles, and lanes 0..C-1 store the warp's
+//     three partials into slot (r, warp) of every CTA's partial array,
+//     double-buffered by diagonal parity. After the one cluster barrier of
+//     the diagonal every thread sums the C * nw partials in (rank, warp)
+//     order, so all CTAs hold the same total, r and 1/total bit for bit;
+//     rank 0 writes mb and total_raw.
+//   - One cluster barrier per diagonal (arrive.release, wait.acquire).
+//     Three rows and two partial buffers make it the only one: a row or a
+//     partial slot is written again only two or three diagonals on, after
+//     every reader has arrived at a later barrier. exp issues the count
+//     operands' loads (F_{k-1}, F_{k-2} neighbours, ex, ey, the symbols)
+//     between arrive and wait.
+//   - exp's counts stay on chip: per-transition accumulators in registers,
+//     the S x 16 emission bins as a column per thread in shared memory.
+//     At the end each CTA reduces its own in a fixed order, and rank 0
+//     sums the C CTAs' counts in rank order through distributed shared
+//     memory and writes trans / emis. No atomics.
+// The streams are read from device memory, each CTA its own slice plus
+// one edge slot: the row-constant bits and (but in exp at 4 slots, short
+// of registers) efx, efy, efm a diagonal ahead, while the cluster meets,
+// the rest at the top of the diagonal, every load issued before any is
+// used, so that a diagonal waits for device memory once, not once per
+// slot. The arithmetic is the other kernels': the same rescale
+// schedule, mb exactly the applied scale, nb()'s zero fill, total_terms.
+// The dot and bridge are summed over another partition of the slots than
+// the global-scratch kernel's, so total_raw and the posteriors agree with
+// it within fp32 rounding (mb, a max, is its value bit for bit).
+
+// Generic address of the same shared-memory location in CTA `rank` of
+// this CTA's cluster (distributed shared memory).
+template <class T>
+__device__ __forceinline__ T* cluster_map(T* ptr, int rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(out) : "l"(ptr), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+
+// The cluster barrier, split: every thread of every CTA of the cluster
+// arrives (its earlier writes, shared and distributed, released) and
+// later waits (the others' writes acquired).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// A CTA's (S, Wc) row `buf` of raw B and its two neighbours' (null at the
+// cluster's ends): the value at local slot l (-1 .. Wc) and global slot
+// jg = base + l, zero outside [0, W).
+template <int S>
+struct ClusterRows {
+  const float* own;
+  const float* left;
+  const float* right;
+  int Wc, W;
+  __device__ __forceinline__ float at(int buf, int s, int l, int jg) const {
+    if (jg < 0 || jg >= W) return 0.f;
+    const int o = (buf * S + s) * Wc;
+    if (l < 0) return left[o + Wc - 1];
+    if (l >= Wc) return right[o];
+    return own[o + l];
+  }
+};
+
+// Dynamic shared memory of wavefront_back_cluster: the three raw rows,
+// the partials [2][C * nw] (float4), and for exp the emission columns
+// (S*16, nt), 32 floats for the block sums and the CTA's counts.
+__host__ __device__ constexpr size_t cluster_smem_bytes(int S, bool exp, int C, int Wc,
+                                                         int nt) {
+  return (3 * (size_t)S * Wc) * sizeof(float) + 2 * (size_t)C * (nt / 32) * 16 +
+         (exp ? ((size_t)S * 16 * nt + 32 + S * S + S * 16) * sizeof(float) : 0);
+}
+
+// The row-constant selects and bits of one diagonal (exp also the forward
+// selects and the scale adjustments), read a diagonal ahead.
+struct ClusterBits {
+  int8_t abw, c1, c0, bm1, bm0, a, b1, b0;
+  int pm0;  // pm's row-constant bits live in every slot
+  float adj1, adj2;
+};
+
+template <bool kExp>
+__device__ __forceinline__ ClusterBits cluster_bits(const BwdArgs& p, size_t row, int W) {
+  ClusterBits r = {p.abw[row], p.c1[row], p.c0[row], p.bm1[row], p.bm0[row], 0, 0, 0,
+                   p.pm[row * W], 0.f, 0.f};
+  if constexpr (kExp) {
+    r.a = p.a[row], r.b1 = p.b1[row], r.b0 = p.b0[row];
+    r.adj1 = p.adj1[row], r.adj2 = p.adj2[row];
+  }
+  return r;
+}
+
+template <int S, int K, bool kExp, bool kWindow>
+__global__ void __launch_bounds__(K == 2 ? kClusterThreads2 : kClusterThreads4)
+    wavefront_back_cluster(const Trans tr, const BwdArgs p, int R, int W, int C, int Wc) {
+  extern __shared__ __align__(16) float cluster_smem[];
+  const int rank = blockIdx.x % C;  // the cluster's CTAs are consecutive along x
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nt >> 5;
+  const int base = rank * Wc;
+  const float* T = tr.v;
+  const size_t SW = (size_t)S * W;
+  const bool all = p.post_x != nullptr;
+  float* rows = cluster_smem;
+  float4* part = reinterpret_cast<float4*>(rows + 3 * S * Wc);
+  float* eacc = reinterpret_cast<float*>(part + 2 * C * nw);
+  float* red = eacc + S * 16 * nt;
+  float* cnt = red + 32;
+  const ClusterRows<S> B = {rows, rank > 0 ? cluster_map(rows, rank - 1) : nullptr,
+                            rank + 1 < C ? cluster_map(rows, rank + 1) : nullptr, Wc, W};
+  // lane l < C stores its warp's partials into CTA l's array
+  float4* peer_part = lane < C ? cluster_map(part, lane) : nullptr;
+  constexpr int kNz = kExp ? Model<S>::kNz : 1;
+  float tacc[kNz];
+#pragma unroll
+  for (int k = 0; k < kNz; ++k) tacc[k] = 0.f;
+
+  // rows R and R+1: the carry in above a window, zero past the batch
+  // path's last diagonal
+  constexpr bool carry = kWindow;
+  float emn[K];  // em_{k+1} of the thread's slots
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int l = tid + q * nt;
+    const int j = base + l;
+    const bool in = l < Wc && j < W;
+    if (l < Wc) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const size_t g = (size_t)b * SW + (size_t)s * W + j;
+        rows[((R % 3) * S + s) * Wc + l] = carry && in ? p.ci_b1[g] : 0.f;
+        rows[(((R + 1) % 3) * S + s) * Wc + l] = carry && in ? p.ci_b2[g] : 0.f;
+      }
+    }
+    emn[q] = carry && in ? p.ci_em[(size_t)b * W + j] : 0.f;
+  }
+  if constexpr (kExp) {
+    for (int k = tid; k < S * 16 * nt; k += nt) eacc[k] = 0.f;
+  }
+  float invb = carry ? p.ci_invb[b] : 1.f;  // 1/mb_{k+1}
+  float s1 = 1.f, s2 = 1.f;  // the scales of rows k+1 and k+2
+  bool z2 = false;           // row k+2 reads as zero (B_{k+1} zeroed at k == L)
+  const float* halo = (kExp && kWindow && p.fhc) ? p.fhc + (size_t)b * 2 * SW : nullptr;
+  cluster_sync();  // every CTA of the cluster runs and has its rows
+
+  // the next diagonal's row-constant bits and (kAhead) recursion streams;
+  // exp at 4 slots a thread has no registers to spare for the streams
+  constexpr bool kAhead = !kExp || K == 2;
+  ClusterBits next = cluster_bits<kExp>(p, (size_t)b * R + R - 1, W);
+  float nx[K], ny[K], nm[K];
+  auto next_streams = [&](size_t row) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int l = tid + q * nt;
+      const int j = base + l;
+      const bool in = l < Wc && j < W;
+      const size_t o = row * W + j;
+      nx[q] = in ? p.efx[o] : 0.f;
+      ny[q] = in ? p.efy[o] : 0.f;
+      nm[q] = in ? p.efm[o] : 0.f;
+    }
+  };
+  if (kAhead) next_streams((size_t)b * R + R - 1);
+  int par = 0;
+  for (int ii = R - 1; ii >= 0; --ii) {
+    const size_t row = (size_t)b * R + ii;
+    const bool norm = ((kWindow ? p.k0 : 0) + ii) % kNormEvery == kNormEvery - 1;
+    const ClusterBits rb = next;
+    const bool at_end = (rb.pm0 & kPmAtEnd) != 0;
+    const bool bvalid = (rb.pm0 & kPmBridge) != 0;
+    const int dx = rb.abw != 0 ? 0 : 1;
+    const int dy = rb.abw != 0 ? -1 : 0;
+    const int dm = rb.c1 != 0 ? -1 : (rb.c0 != 0 ? 0 : 1);
+    const int db = rb.bm1 != 0 ? 1 : (rb.bm0 != 0 ? 0 : -1);
+    const int bk0 = ii % 3, bk1 = (ii + 1) % 3, bk2 = (ii + 2) % 3;
+    // bridgevec_{k+1}: row k+1's stream, or the carry in (zero past the
+    // batch path's last diagonal)
+    const float* bvr = ii + 1 < R ? p.bv + (row + 1) * W : carry ? p.ci_bv + (size_t)b * W : nullptr;
+
+    // every device-memory read of the diagonal (kAhead: but the
+    // recursion's streams, which came a diagonal ahead) is issued before
+    // any is used
+    float vx[K], vy[K], vm[K], ve[K], vb[K], vF[K][S];
+    int vp[K];
+    if (!kAhead) next_streams(row);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int l = tid + q * nt;
+      const int j = base + l;
+      const bool in = l < Wc && j < W;
+      const size_t o = row * W + j;
+      vx[q] = nx[q];
+      vy[q] = ny[q];
+      vm[q] = nm[q];
+      ve[q] = in ? p.em[o] : 0.f;
+      vb[q] = in ? nbz(bvr, j + db, W) : 0.f;
+      vp[q] = !kExp && in ? p.pm[o] : 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) vF[q][s] = in ? p.F[(row * S + s) * W + j] : 0.f;
+    }
+
+    float raw[K][S];
+    float lmax = 0.f, lbr = 0.f, ldot = 0.f;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int l = tid + q * nt;
+      const int j = base + l;
+#pragma unroll
+      for (int s = 0; s < S; ++s) raw[q][s] = 0.f;
+      if (l < Wc && j < W) {
+        // raw neighbours: a slot whose three neighbours lie in its own
+        // slice and the band reads them from its own rows directly
+        float x1[S], y1[S], m2[S];
+        if (l >= 1 && l + 1 < Wc && j >= 1 && j + 1 < W) {
+          const float* r1 = rows + bk1 * S * Wc + l;
+          const float* r2 = rows + bk2 * S * Wc + l;
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            x1[s] = r1[s * Wc + dx];
+            y1[s] = r1[s * Wc + dy];
+            m2[s] = r2[s * Wc + dm];
+          }
+        } else {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            x1[s] = B.at(bk1, s, l + dx, j + dx);
+            y1[s] = B.at(bk1, s, l + dy, j + dy);
+            m2[s] = B.at(bk2, s, l + dm, j + dm);
+          }
+        }
+        const float efmi = vm[q] * invb;
+        float bx[S], bm[S], by[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          bx[s] = x1[s] * s1 * vx[q];
+          by[s] = y1[s] * s1 * vy[q];
+          bm[s] = (z2 ? 0.f : m2[s] * s2) * efmi;
+        }
+        Model<S>::bwd(raw[q], bx, bm, by, T);
+        if (at_end) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) raw[q][s] = p.end_row[((size_t)b * S + s) * W + j];
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (norm) lmax = fmaxf(lmax, raw[q][s]);
+          ldot += vF[q][s] * raw[q][s];
+          rows[(bk0 * S + s) * Wc + l] = raw[q][s];
+        }
+        lbr += vb[q] * emn[q] * (rows[bk1 * S * Wc + l] * s1);
+      }
+    }
+
+    // the diagonal's partials: per warp, into slot (rank, warp) of every
+    // CTA's array of this parity
+    for (int o = 16; o > 0; o >>= 1) {
+      if (norm) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      lbr += __shfl_xor_sync(0xffffffffu, lbr, o);
+      ldot += __shfl_xor_sync(0xffffffffu, ldot, o);
+    }
+    if (lane < C) peer_part[(par * C + rank) * nw + warp] = make_float4(lmax, lbr, ldot, 0.f);
+    cluster_arrive();
+
+    // while the cluster meets: the next diagonal's row-constant bits and
+    // recursion streams, and exp's count operands of this one (see
+    // wavefront_exp)
+    if (ii >= 1) {
+      next = cluster_bits<kExp>(p, row - 1, W);
+      if (kAhead) next_streams(row - 1);
+    }
+    float lo[kExp ? K : 1][S], up[kExp ? K : 1][S], mid[kExp ? K : 1][S];
+    float vex[kExp ? K : 1], vey[kExp ? K : 1];
+    int vw[kExp ? K : 1];
+    if constexpr (kExp) {
+      const int dl = rb.a == 0 ? -1 : 0;
+      const int du = dl + 1;
+      const int dmf = rb.b1 != 0 ? 1 : (rb.b0 != 0 ? 0 : -1);
+      const float* F1 = ii >= 1 ? p.F + (row - 1) * SW : halo ? halo + SW : nullptr;
+      const float* F2 = ii >= 2 ? p.F + (row - 2) * SW : halo ? halo + ii * SW : nullptr;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const int l = tid + q * nt;
+        const int j = base + l;
+        const bool in = l < Wc && j < W;
+        const size_t o = row * W + j;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          lo[q][s] = in ? nbz(F1 ? F1 + s * W : nullptr, j + dl, W) : 0.f;
+          up[q][s] = in ? nbz(F1 ? F1 + s * W : nullptr, j + du, W) : 0.f;
+          mid[q][s] = in ? nbz(F2 ? F2 + s * W : nullptr, j + dmf, W) : 0.f;
+        }
+        vex[q] = in ? p.ex[o] : 0.f;
+        vey[q] = in ? p.ey[o] : 0.f;
+        const int sx = in ? p.wx[o] : 4;
+        const int sy = in ? p.wy[o] : 4;
+        vw[q] = sx < 4 && sy < 4 ? sx * 4 + sy : -1;
+      }
+    }
+    cluster_wait();
+
+    // every CTA sums the C * nw partials in the same order: four running
+    // sums over k mod 4, then (0 + 1) + (2 + 3)
+    const float4* pp = part + par * C * nw;
+    float m = 0.f, bridge = 0.f, dot = 0.f;
+    {
+      float mq[4] = {0.f, 0.f, 0.f, 0.f}, bq[4] = {0.f, 0.f, 0.f, 0.f},
+            dq[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < C * nw; k += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (k + u < C * nw) {
+            const float4 v = pp[k + u];
+            mq[u] = fmaxf(mq[u], v.x);
+            bq[u] += v.y;
+            dq[u] += v.z;
+          }
+        }
+      }
+      m = fmaxf(fmaxf(mq[0], mq[1]), fmaxf(mq[2], mq[3]));
+      bridge = (bq[0] + bq[1]) + (bq[2] + bq[3]);
+      dot = (dq[0] + dq[1]) + (dq[2] + dq[3]);
+    }
+    float r = 1.f;
+    float mbv = 0.f;
+    if (norm) {
+      if (!(m > 0.f) || at_end) m = 1.f;
+      r = 1.f / m;
+      mbv = logf(m);
+    }
+    const float total = r * (dot + (bvalid ? bridge : 0.f));
+    const TotalTerms tt = total_terms(total);
+    const float invt = tt.invt;
+    if (rank == 0 && tid == 0) {
+      p.mb[row] = mbv;
+      p.tot[row] = tt.log;
+    }
+
+    const float a1 = rb.adj1, a2 = rb.adj2;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int l = tid + q * nt;
+      const int j = base + l;
+      if (l < Wc && j < W) {
+        float bk[S];  // B_k, exactly the rescaled row mb records
+#pragma unroll
+        for (int s = 0; s < S; ++s) bk[s] = raw[q][s] * r;
+        if constexpr (kExp) {
+          const float exa = vex[q] * a1;
+          const float eya = vey[q] * a1;
+          const float ema = ve[q] * a2;
+          float l_[S], m_[S], u_[S], bw[S], qv[S];
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            l_[s] = lo[q][s] * exa;
+            u_[s] = up[q][s] * eya;
+            m_[s] = mid[q][s] * ema;
+            bw[s] = bk[s] * invt;
+            qv[s] = 0.f;
+          }
+          Model<S>::exp(tacc, qv, l_, m_, u_, bw, T);
+          if (vw[q] >= 0) {
+            float* col = eacc + vw[q] * nt + tid;
+#pragma unroll
+            for (int s = 0; s < S; ++s) col[s * 16 * nt] += qv[s] * bw[s];
+          }
+        } else {
+          const size_t o = row * W + j;
+          const int pb = vp[q];
+          p.post_m[o] = (pb & kPmMatch) ? vF[q][0] * bk[0] * invt : 0.f;
+          if (all) {
+            p.post_x[o] = (pb & kPmGapX) ? vF[q][1] * bk[1] * invt : 0.f;
+            p.post_y[o] = (pb & kPmGapY) ? vF[q][2] * bk[2] * invt : 0.f;
+          }
+        }
+        emn[q] = ve[q];
+      }
+    }
+    invb = at_end ? 1.f : r;
+    s2 = s1;
+    z2 = at_end;
+    s1 = r;
+    par ^= 1;
+  }
+
+  // carry out of row 0: rows 0 and 1 as the other kernels hold them (the
+  // thread's own slots, which it wrote itself)
+  if (kWindow && p.co_b1 != nullptr) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int l = tid + q * nt;
+      const int j = base + l;
+      if (l < Wc && j < W) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const size_t g = (size_t)b * SW + (size_t)s * W + j;
+          p.co_b1[g] = rows[(0 * S + s) * Wc + l] * s1;
+          p.co_b2[g] = z2 ? 0.f : rows[(1 * S + s) * Wc + l] * s2;
+        }
+        p.co_bv[(size_t)b * W + j] = p.bv[(size_t)b * R * W + j];
+        p.co_em[(size_t)b * W + j] = emn[q];
+      }
+    }
+    if (rank == 0 && tid == 0) p.co_invb[b] = invb;
+  }
+
+  if constexpr (kExp) {
+    // this CTA's counts into cnt, then rank 0 sums the cluster's in rank
+    // order (the trans sums end with a barrier, after which every
+    // thread's emission column is complete)
+    float out[S * S];
+#pragma unroll
+    for (int k = 0; k < S * S; ++k) out[k] = 0.f;
+    Model<S>::trans(out, tacc, red, T, nt);
+    if (tid == 0) {
+      for (int k = 0; k < S * S; ++k) cnt[k] = out[k];
+    }
+    for (int k = tid; k < S * 16; k += nt) {
+      const float* rowp = eacc + k * nt;
+      float s = 0.f;
+      for (int c = 0; c < nt; ++c) s += rowp[c];
+      cnt[S * S + k] = s;
+    }
+    cluster_sync();
+    if (rank == 0) {
+      for (int k = tid; k < S * S + S * 16; k += nt) {
+        float s = 0.f;
+        for (int c = 0; c < C; ++c) s += cluster_map(cnt, c)[k];
+        if (k < S * S)
+          p.trans[(size_t)b * S * S + k] = s;
+        else
+          p.emis[(size_t)b * S * 16 + k - S * S] = s;
+      }
+    }
+    cluster_sync();  // no CTA leaves while rank 0 reads its counts
   }
 }
 
@@ -1976,13 +2472,81 @@ int launch_fwd_wide(const float* t_host, const float* ex, const float* ey, const
   return (int)cudaGetLastError();
 }
 
+// The cluster size wavefront_back_cluster's plan uses, at most
+// kClusterMax; 0 turns the cluster variant off (cpecan_wavefront_set_
+// cluster_limit: for measurements and tests).
+int g_cluster_limit = kClusterMax;
+
+// wavefront_back_wide's launch at (S, W): the cluster variant
+// (wavefront_back_cluster, cluster > 0) where a cluster of
+// g_cluster_limit CTAs holds the band: slices of Wc slots (W / C rounded
+// up to 32); exp 2 slots per thread where that takes at most
+// kClusterThreads2 threads and fits shared memory (the counts after the
+// reduction are its longest serial work: half of it a thread), else 4,
+// and bwd 4, on at most kClusterThreads4 (bwd ran slower on 2: more warps
+// to reduce and meet, the same chain per diagonal); else the
+// global-scratch kernel (cluster 0), the declared route above the
+// cluster's capacity (W > 12288 at C = 8).
+struct BackWidePlan {
+  int cluster, slots, slice, threads;
+  size_t smem;
+};
+
+BackWidePlan back_wide_plan(int S, int W, bool exp) {
+  const int C = g_cluster_limit;
+  if (C < 2) return {0, 0, 0, 0, 0};
+  const int Wc = ((W + C - 1) / C + 31) / 32 * 32;
+  for (int K : {2, 4}) {
+    if (K == 2 && !exp) continue;
+    const int nt = ((Wc + K - 1) / K + 31) / 32 * 32;
+    const size_t smem = cluster_smem_bytes(S, exp, C, Wc, nt);
+    if (nt <= (K == 2 ? kClusterThreads2 : kClusterThreads4) && smem <= kSmemPerBlock)
+      return {C, K, Wc, nt, smem};
+  }
+  return {0, 0, 0, 0, 0};
+}
+
+using ClusterKernel = void (*)(Trans, BwdArgs, int, int, int, int);
+
+template <int S, int K, bool kExp>
+ClusterKernel cluster_kernel(bool window) {
+  return window ? wavefront_back_cluster<S, K, kExp, true> : wavefront_back_cluster<S, K, kExp, false>;
+}
+
 template <int S, bool kExp>
 int launch_back_wide(const float* t_host, const BwdArgs& p, int B, int R, int W,
                      cudaStream_t stream) {
-  auto kernel = p.ci_b1 != nullptr ? wavefront_back_wide<S, kExp, true>
-                                   : wavefront_back_wide<S, kExp, false>;
-  const int nt = std::min((W + 31) / 32 * 32, kExp ? kExpWideThreads : kWideThreads);
-  kernel<<<B, nt, 0, stream>>>(load_trans(S, t_host), p, R, W);
+  const bool window = p.ci_b1 != nullptr;
+  const BackWidePlan pl = back_wide_plan(S, W, kExp);
+  if (pl.cluster == 0) {
+    auto kernel = window ? wavefront_back_wide<S, kExp, true> : wavefront_back_wide<S, kExp, false>;
+    const int nt = std::min((W + 31) / 32 * 32, kExp ? kExpWideThreads : kWideThreads);
+    kernel<<<B, nt, 0, stream>>>(load_trans(S, t_host), p, R, W);
+    return (int)cudaGetLastError();
+  }
+  // the cluster variant; a launch it cannot make is an error, never the
+  // global-scratch kernel
+  ClusterKernel kernel = cluster_kernel<S, 4, kExp>(window);
+  if constexpr (kExp) {
+    if (pl.slots == 2) kernel = cluster_kernel<S, 2, kExp>(window);
+  }
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * pl.cluster);
+  cfg.blockDim = dim3(pl.threads);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, load_trans(S, t_host), p, R, W, pl.cluster, pl.slice);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -2198,6 +2762,27 @@ int cpecan_wavefront_exp_plan(int S, int W, int aligned, int* out) {
   const Plan pl = exp_plan(S, W, aligned != 0, W > kExpSharedWidth);
   out[0] = pl.threads, out[1] = pl.slots, out[2] = pl.depth, out[3] = (int)pl.smem;
   return 0;
+}
+
+// wavefront_back_wide's launch at (S, W) for bwd (exp == 0) or exp: out
+// = {cluster size (0: the global-scratch kernel), band slots per thread,
+// slice, threads per CTA, dynamic shared memory bytes}.
+int cpecan_wavefront_back_wide_plan(int S, int W, int exp, int* out) {
+  if (bad_shape(S, 1, 1, W, true)) return (int)cudaErrorInvalidValue;
+  const BackWidePlan pl = back_wide_plan(S, W, exp != 0);
+  out[0] = pl.cluster, out[1] = pl.slots, out[2] = pl.slice, out[3] = pl.threads;
+  out[4] = (int)pl.smem;
+  return 0;
+}
+
+// Sets the cluster size of wavefront_back_wide's cluster variant (2 ..
+// kClusterMax; 0: the global-scratch kernel at every width) and returns
+// the one before, or -1 for a size it cannot take.
+int cpecan_wavefront_set_cluster_limit(int cluster) {
+  if (cluster != 0 && (cluster < 2 || cluster > kClusterMax)) return -1;
+  const int before = g_cluster_limit;
+  g_cluster_limit = cluster;
+  return before;
 }
 
 const char* cpecan_cuda_error_string(int err) {

@@ -19,10 +19,15 @@ Engine choice mirrors the JAX package's auto route: on CUDA tensors the
 parallel engine for posterior modes and the exact engine otherwise; on
 CPU tensors the exact engine (the JAX package's CPU choice is its scan
 engine, which gives the same numbers as its exact engine by design). The
-JAX package's scan engine itself is not ported.
+JAX package's scan engine itself is not ported. The JAX package's two
+overrides are read here too: CPECAN_TPU_STREAM_BUDGET (bytes, see
+``stream_budget_bytes``) and CPECAN_TPU_STREAM_ENGINE (see
+``fb_pass_streaming``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -31,19 +36,47 @@ from cpecan_tpu_torch.ops.fb import _SENTINEL
 
 # Chunks whose two-pass resident tensors (F + B + the emission/mask
 # streams, ~3 copies of (P+1, S, W) fp32) would exceed this many bytes
-# stream (cpecan_tpu/ops/fb_streaming.py at its default budget).
+# stream (cpecan_tpu/ops/fb_streaming.py at its default budget), unless
+# CPECAN_TPU_STREAM_BUDGET says otherwise.
 _STREAM_BUDGET = 1 << 30
 
 ENGINES = ("exact", "parallel")
+# CPECAN_TPU_STREAM_ENGINE's values (the JAX package's engine names)
+ENV_ENGINES = ("auto", "parallel", "wavefront", "scan")
 
 # Engine of the most recent fb_pass_streaming call.
 LAST_ENGINE: str | None = None
 
 
+def stream_budget_bytes() -> int:
+    """CPECAN_TPU_STREAM_BUDGET, or the module's _STREAM_BUDGET (read at
+    call time)."""
+    return int(os.environ.get("CPECAN_TPU_STREAM_BUDGET", _STREAM_BUDGET))
+
+
 def should_stream(diagonal_number: int, width: int,
                   state_number: int = 5) -> bool:
     resident = 3 * (diagonal_number + 1) * state_number * max(width, 128) * 4
-    return resident > _STREAM_BUDGET
+    return resident > stream_budget_bytes()
+
+
+def _env_engine(mode: str, on_card: bool) -> str:
+    """The engine CPECAN_TPU_STREAM_ENGINE picks (cpecan_tpu/ops/
+    fb_streaming.py:248-270): "auto" (the default) by device, as the
+    module docstring says; "parallel" the burn-in engine where it serves
+    ``mode``, else the exact engine, as the JAX package falls through;
+    "wavefront" the exact engine; "scan" the exact engine too (the JAX
+    package's scan engine is not ported, and computes the same
+    recurrence). Any other value raises ValueError."""
+    from cpecan_tpu_torch.ops import fb_parallel
+
+    name = os.environ.get("CPECAN_TPU_STREAM_ENGINE", "auto")
+    if name not in ENV_ENGINES:
+        raise ValueError(f"CPECAN_TPU_STREAM_ENGINE must be one of "
+                         f"{ENV_ENGINES}, got {name!r}")
+    if name == "parallel" or (name == "auto" and on_card):
+        return "parallel" if fb_parallel.supported(mode) else "exact"
+    return "exact"
 
 
 def window_rows(p) -> int:
@@ -102,7 +135,8 @@ def fb_pass_streaming(hmm, seq_x_codes, seq_y_codes, offsets: np.ndarray,
     offsets/widths: UNPADDED band arrays (length lx+ly+1).
     window: diagonals per checkpoint window (``window_rows(p)``).
     burnin: the parallel engine's halo rows (``fb_parallel.burnin_rows(p)``).
-    engine: "exact", "parallel" or None (see the module docstring).
+    engine: "exact", "parallel" or None (CPECAN_TPU_STREAM_ENGINE, see
+      ``_env_engine``).
 
     Returns a dict:
       "windows": the number of windows; "xoff": the padded frame offsets
@@ -119,9 +153,7 @@ def fb_pass_streaming(hmm, seq_x_codes, seq_y_codes, offsets: np.ndarray,
 
     global LAST_ENGINE
     if engine is None:
-        on_card = hmm.t.device.type == "cuda"
-        engine = ("parallel" if on_card and fb_parallel.supported(mode)
-                  else "exact")
+        engine = _env_engine(mode, hmm.t.device.type == "cuda")
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     LAST_ENGINE = engine

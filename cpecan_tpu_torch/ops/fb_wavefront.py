@@ -64,9 +64,10 @@ _PM_ATEND = 8  # k == L (broadcast over slots)
 _PM_BRIDGE = 16  # 1 <= k < L (broadcast over slots)
 
 # Widest band of the kernels' shared-memory variants (fwd/bwd 1024 threads
-# x 4 slots per thread, exp 512 x 8); wider bands run the wide variants,
-# whose carries live in device memory (bwd and exp: a (B, 3, S, W) fp32
-# scratch the wrapper passes).
+# x 4 slots per thread, exp 512 x 8); wider bands run the wide variants:
+# fwd's carries live in device memory, bwd and exp run on a thread-block
+# cluster that keeps B on chip up to W = 12288 and above it on a
+# (B, 3, S, W) fp32 scratch the wrapper passes (``back_wide_plan``).
 MAX_KERNEL_WIDTH = 4096
 # Widest band whose per-thread emission accumulators fit exp's shared
 # memory (256 threads x 8 slots); wider launches, and every launch of the
@@ -86,10 +87,12 @@ KERNEL_NZ = _kernels.kernel_structures()
 # the burn-in-parallel engine's window batches (par_*). The CUDA kernels
 # serve all sites; each wrapper adds one to the count its caller names
 # where it launches a kernel, and nowhere else, and one more to wide_fwd,
-# wide_bwd or wide_exp where that kernel is a wide variant.
+# wide_bwd or wide_exp where that kernel is a wide variant, and of those
+# bwd and exp one more to cluster_bwd or cluster_exp where the launch plan
+# (``back_wide_plan``) ran the cluster variant.
 LAUNCHES = {"fwd": 0, "bwd": 0, "exp": 0, "seg_fwd": 0, "seg_bwd": 0,
             "seg_exp": 0, "par_fwd": 0, "par_bwd": 0, "wide_fwd": 0,
-            "wide_bwd": 0, "wide_exp": 0}
+            "wide_bwd": 0, "wide_exp": 0, "cluster_bwd": 0, "cluster_exp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -726,9 +729,10 @@ def fwd(t, ex, ey, em, a, b1, b0, F0, nz, carry=None, k0=0, site="fwd"):
 def bwd(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row, nz,
         mode: str = "posterior_match", carry=None, k0=0, site="bwd"):
     """Backward+posterior wavefront: ``bwd_reference`` for CPU tensors,
-    the CUDA kernel ``wavefront_bwd`` (``wavefront_back_wide`` above
-    MAX_KERNEL_WIDTH) for CUDA tensors. Same contract as
-    ``bwd_reference``."""
+    the CUDA kernel ``wavefront_bwd`` (above MAX_KERNEL_WIDTH the entry
+    point of ``wavefront_back_wide``, whose plan runs the cluster kernel
+    ``wavefront_back_cluster`` where it holds the band) for CUDA tensors.
+    Same contract as ``bwd_reference``."""
     B, R, W = efx.shape
     entry = kernel_route("bwd", efx.device, W)
     if entry is None:
@@ -763,7 +767,7 @@ def bwd(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm, end_row, nz,
             _ptr(end_row), _ptr(posts[0]), px, py, _ptr(mb), _ptr(tot),
             *_carry_ptrs(carry, 5), *_carry_ptrs(co, 5),
             *map(_ptr, scratch), B, R, W, k0)
-    _count(site, "bwd", entry)
+    _count(site, "bwd", entry, S, W)
     return (posts, mb, tot) if carry is None else (posts, mb, tot, co)
 
 
@@ -775,10 +779,12 @@ def _wide_scratch(entry: str, B: int, S: int, W: int, device) -> list:
     return [torch.empty(B, 3, S, W, dtype=torch.float32, device=device)]
 
 
-def _count(site: str, kernel: str, entry: str) -> None:
+def _count(site: str, kernel: str, entry: str, S: int = 0, W: int = 0) -> None:
     LAUNCHES[site] += 1
     if entry.endswith("_wide"):
         LAUNCHES[f"wide_{kernel}"] += 1
+        if kernel != "fwd" and back_wide_plan(S, W, kernel == "exp")["cluster"]:
+            LAUNCHES[f"cluster_{kernel}"] += 1
 
 
 def _plan(kernel: str, S: int, W: int, aligned: bool) -> dict:
@@ -816,13 +822,38 @@ def exp_plan(S: int, W: int, aligned: bool = True) -> dict:
     return _plan("exp", S, W, aligned)
 
 
+def back_wide_plan(S: int, W: int, exp: bool = False) -> dict:
+    """The launch ``wavefront_back_wide``'s entry points (bwd, or exp) take
+    at (S, W) > MAX_KERNEL_WIDTH: cluster (CTAs per pair in the cluster
+    variant ``wavefront_back_cluster``; 0: the global-scratch kernel),
+    slots (band slots per thread), slice (band slots per CTA), threads
+    per CTA and dynamic shared memory in bytes. Builds the kernel library
+    on first use."""
+    out = (ctypes.c_int * 5)()
+    err = _kernels.load().cpecan_wavefront_back_wide_plan(
+        S, W, int(exp), ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise ValueError(f"back_wide_plan: no launch for S={S}, W={W}")
+    return dict(zip(("cluster", "slots", "slice", "threads", "smem"), out))
+
+
+def set_cluster_limit(cluster: int) -> int:
+    """Sets the cluster size that ``back_wide_plan`` uses (2..8, default 8;
+    0 runs the global-scratch kernel at every width) and returns the one
+    before: for measurements and tests of the two variants."""
+    before = _kernels.load().cpecan_wavefront_set_cluster_limit(cluster)
+    if before < 0:
+        raise ValueError(f"cluster size {cluster} is not 0 or 2..8")
+    return before
+
+
 def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
         b0, pm, end_row, adj1, adj2, wx, wy, nz, halo=None, carry=None, k0=0,
         site="exp"):
     """Backward recursion plus expected counts: ``exp_reference`` for CPU
-    tensors, the CUDA kernel ``wavefront_exp`` (``wavefront_back_wide``
-    above MAX_KERNEL_WIDTH) for CUDA tensors. Same contract as
-    ``exp_reference`` (per-pair trans and emis)."""
+    tensors, the CUDA kernel ``wavefront_exp`` (``wavefront_back_wide``'s
+    entry point above MAX_KERNEL_WIDTH, as ``bwd``) for CUDA tensors. Same
+    contract as ``exp_reference`` (per-pair trans and emis)."""
     B, R, W = efx.shape
     entry = kernel_route("exp", efx.device, W)
     if entry is None:
@@ -866,7 +897,7 @@ def exp(t, efx, efy, efm, em, ex, ey, F, bv, abw, c1, c0, bm1, bm0, a, b1,
             _ptr(mb), _ptr(tot), _ptr(halo) if halo is not None else _NULL,
             *_carry_ptrs(carry, 5), *_carry_ptrs(co, 5),
             *map(_ptr, scratch), B, R, W, k0)
-    _count(site, "exp", entry)
+    _count(site, "exp", entry, S, W)
     return ((trans, emis, mb, tot) if carry is None
             else (trans, emis, mb, tot, co))
 

@@ -254,6 +254,9 @@ def test_wrappers_launch_the_variant_of_their_width(monkeypatch, W, window):
                      **{k: meta(v) for k, v in bkw.items()})
     fb_wavefront.exp(ein[0], *map(meta, ein[1:]), **{k: meta(v) for k, v in ekw.items()})
     wide = "_wide" if W > fb_wavefront.MAX_KERNEL_WIDTH else ""
+    # (the wide bwd and exp also ask the stub for their plan, for the
+    # cluster counts: it answers cluster 0)
+    lib.calls = [(n, a) for n, a in lib.calls if not n.endswith("_plan")]
     assert [name for name, _ in lib.calls] == [
         f"cpecan_wavefront_{k}{wide}" for k in ("fwd", "bwd", "exp")]
     counts = {k: 1 for k in ("fwd", "bwd", "exp")}
@@ -773,37 +776,58 @@ def test_exp_kernel_off_grid_streams_on_card(cuda_device, W):
     assert_exp_close(got, want, f"off-grid wx W={W}")
 
 
+def _wide_inputs(kernel, hmm, W, window, R=29):
+    """Random inputs of a wide launch (B=2) of ``kernel`` on the CPU, as
+    (arguments, keywords); windows start at k0 = 5 (bwd) or 3 (exp)."""
+    rng = np.random.default_rng(W)
+    if kernel == "fwd":
+        return random_fwd_inputs(rng, hmm, 2, R, W, window)
+    if kernel == "bwd":
+        got_ = random_bwd_inputs(rng, hmm, 2, R, W, carry=window)
+        args, carry = got_ if window else (got_, None)
+        return ([*args, "posterior_all"],
+                {"carry": carry, "k0": 5} if window else {})
+    args, kw = random_exp_inputs(rng, hmm, 2, R, W, window)
+    if window:
+        kw["k0"] = 3
+    return args, kw
+
+
+@contextlib.contextmanager
+def _cluster_limit(cluster):
+    """wavefront_back_wide's cluster size for the block (0: the
+    global-scratch kernel at every width)."""
+    before = fb_wavefront.set_cluster_limit(cluster)
+    try:
+        yield
+    finally:
+        fb_wavefront.set_cluster_limit(before)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [False, True])
 @pytest.mark.parametrize("W", [4224, 8200])
 @pytest.mark.parametrize("kernel", ["fwd", "bwd", "exp"])
-def test_wide_variants_on_card(cuda_device, kernel, W, window):
+@pytest.mark.parametrize("sm_factory", [state_machine5, state_machine3])
+def test_wide_variants_on_card(cuda_device, sm_factory, kernel, W, window):
     """Bands wider than MAX_KERNEL_WIDTH run the wide variants (carries in
-    device memory): against the plain versions on the same card tensors,
+    device memory; bwd and exp on a thread-block cluster, which the plan
+    query shows): against the plain versions on the same card tensors,
     as a batch and as a window (carries in and out; exp's F halo), at a
     width on the 16-byte grid and one off it."""
-    hmm = PairHMM.from_state_machine(state_machine5())
-    rng = np.random.default_rng(W)
-    if kernel == "fwd":
-        args, kw = random_fwd_inputs(rng, hmm, 2, 29, W, window)
-    elif kernel == "bwd":
-        got_ = random_bwd_inputs(rng, hmm, 2, 29, W, carry=window)
-        args, carry = got_ if window else (got_, None)
-        args = [*args, "posterior_all"]
-        kw = {"carry": carry, "k0": 5} if window else {}
-    else:
-        args, kw = random_exp_inputs(rng, hmm, 2, 29, W, window)
-        if window:
-            kw["k0"] = 3
-    args, kw = _on(cuda_device, args, kw)
+    hmm = PairHMM.from_state_machine(sm_factory())
+    args, kw = _on(cuda_device, *_wide_inputs(kernel, hmm, W, window))
     assert fb_wavefront.kernel_route(kernel, cuda_device, W).endswith("_wide")
+    if kernel != "fwd":
+        plan = fb_wavefront.back_wide_plan(hmm.state_number, W, kernel == "exp")
+        assert plan["cluster"] == 8, plan
     fb_wavefront.reset_launch_counts()
     got = getattr(fb_wavefront, kernel)(*args, **kw)
     want = getattr(fb_wavefront, f"{kernel}_reference")(*args, **kw)
     torch.cuda.synchronize()
     assert fb_wavefront.LAUNCHES[kernel] == 1
     assert fb_wavefront.LAUNCHES[f"wide_{kernel}"] == 1
-    what = f"wide {kernel} W={W} window={window}"
+    what = f"wide {kernel} S={hmm.state_number} W={W} window={window}"
     if kernel == "bwd":
         assert_bwd_close(got, want, what)
     elif kernel == "exp":
@@ -816,3 +840,60 @@ def test_wide_variants_on_card(cuda_device, kernel, W, window):
             rtol, atol = TOLERANCES.get(key, (1e-4, 1e-6))
             torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
                                        msg=f"{what} {key}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("kernel", ["bwd", "exp"])
+def test_wide_back_global_route_above_cluster_capacity(cuda_device, kernel,
+                                                       window):
+    """Above the cluster's capacity (8 CTAs of 384 threads x 4 slots,
+    W > 12288) the plan declares the global-scratch kernel; it still
+    matches the plain versions (23 diagonals)."""
+    W = 12320
+    hmm = PairHMM.from_state_machine(state_machine5())
+    assert fb_wavefront.back_wide_plan(5, W, kernel == "exp")["cluster"] == 0
+    assert fb_wavefront.back_wide_plan(5, 12288, kernel == "exp")["cluster"] == 8
+    args, kw = _on(cuda_device, *_wide_inputs(kernel, hmm, W, window, R=23))
+    fb_wavefront.reset_launch_counts()
+    got = getattr(fb_wavefront, kernel)(*args, **kw)
+    want = getattr(fb_wavefront, f"{kernel}_reference")(*args, **kw)
+    torch.cuda.synchronize()
+    assert fb_wavefront.LAUNCHES[f"wide_{kernel}"] == 1
+    what = f"global wide {kernel} W={W} window={window}"
+    (assert_bwd_close if kernel == "bwd" else assert_exp_close)(got, want, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [3, 4, 8])
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("kernel", ["bwd", "exp"])
+def test_cluster_matches_global_variant(cuda_device, kernel, window, cluster):
+    """At W=4224 the cluster variant (3, 4 or 8 CTAs) against the
+    global-scratch kernel on the same inputs: mb (a max of the same B)
+    and the carry out bit for bit; total_raw within 1e-5 absolute and the
+    posteriors or counts within the kernel tests' tolerances, because
+    the dot and bridge are summed over another partition of the slots."""
+    W = 4224
+    hmm = PairHMM.from_state_machine(state_machine5())
+    args, kw = _on(cuda_device, *_wide_inputs(kernel, hmm, W, window))
+    run = getattr(fb_wavefront, kernel)
+    with _cluster_limit(cluster):
+        assert fb_wavefront.back_wide_plan(5, W, kernel == "exp")["cluster"] \
+            == cluster
+        got = run(*args, **kw)
+    with _cluster_limit(0):
+        assert fb_wavefront.back_wide_plan(5, W, kernel == "exp")["cluster"] == 0
+        ref = run(*args, **kw)
+    torch.cuda.synchronize()
+    what = f"cluster {cluster} vs global {kernel} window={window}"
+    mb, tot = (1, 2) if kernel == "bwd" else (2, 3)
+    assert torch.equal(got[mb], ref[mb]), what
+    torch.testing.assert_close(got[tot], ref[tot], rtol=0, atol=1e-5, msg=what)
+    if window:
+        for g, r in zip(got[-1], ref[-1]):
+            assert torch.equal(g, r), what
+    if kernel == "bwd":
+        assert_bwd_close(got, ref, what)
+    else:
+        assert_exp_close(got, ref, what)
