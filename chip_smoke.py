@@ -6,24 +6,26 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile the CUDA kernels from cpecan_tpu_torch/csrc with nvcc;
+  2. build: compile the CUDA kernels from cpecan_tpu_torch/csrc with nvcc
+     (four parts at once);
   3. kernels: on four batches (headline, dense anchors, 3-state ragged,
      full band W >= 1024) run the forward and backward kernels and their
      plain PyTorch versions on the same card tensors, check the
-     tolerances, and time both per call; on the headline and the 3-state
+     tolerances, and time the kernels per call (the plain versions' one
+     call at the headline batch); on the headline and the 3-state
      batch the same for the expectation kernel, and on a full band of
      2.5 kb pairs with its emission bins in device scratch (W > 2048);
      then the forward and the backward kernel across band widths 32-4096
-     (B=64, R=1025), and the expectation kernel across the same and two
+     (B=64, R=257), and the expectation kernel across the same and two
      more: against its plain version, its launch plan (ring depth, shared
      memory), time, us per diagonal, share of the bound and ptxas
      registers/spills, with its direct-load variant beside the ring where
      it has one;
   4. realign main path: cpecan_tpu_torch.cli.realign.main on 1024
-     generated 1 kb record pairs (default decode) and 256 of them with
+     generated 1 kb record pairs (default decode) and 128 of them with
      --mea, with every kernel's launch count reset before and read after;
   5. card against CPU: realign.main with --device cpu (the kernels' plain
-     versions) on the first 32 records, default and --mea, must give the
+     versions) on the first 8 records, default and --mea, must give the
      card run's cigars; batch_posteriors at the main path's parameters on
      those records, on the card and on the CPU, must give the same pairs;
   6. EM main path: the expectation kernel against its plain version on
@@ -34,10 +36,10 @@ Phases (any failure raises, so the exit code is non-zero):
      launch counts reset before and read after each; one more 5-state
      iteration with torch.profiler tracing the device only, for that
      run's device busy share;
-  7. EM card against CPU: 2 iterations on the first 32 records, and
+  7. EM card against CPU: 2 iterations on the first 8 records, and
      realign --outputExpectations on them, on the card and with
      --device cpu: the HMMs must agree;
-  8. long-pair kernels: on a 2 kb evolved pair in windows of 128 rows,
+  8. long-pair kernels: on a 600 bp evolved pair in windows of 128 rows,
      the exact streaming engine (posterior, expectation and forward
      modes: the kernels with carries, k0 phase and F halo) and the
      burn-in-parallel engine, each through the kernels and again through
@@ -55,18 +57,20 @@ Phases (any failure raises, so the exit code is non-zero):
      against the two-pass kernels on one 100 kb chunk, and card against
      CPU with every chunk of two 3 kb records made to stream;
  11. EM with long records: one 5-state iteration over 2 x 100 kb records
-     and 32 short ones (segmented exp kernel), the exact engine's counts
+     and 8 short ones (segmented exp kernel), the exact engine's counts
      and likelihood on one long chunk against the two-pass kernels', and
      card against CPU (2 iterations) with every chunk made to stream;
- 12. wide bands (W > 4096, the kernels' wide variants): first F2, the
-     backward kernels (shared-memory, cluster and global-scratch) against
-     their plain versions on totals of 0, inf and NaN; the batch path's
-     three kernels on a full band of 1 kb pairs padded out to W=4352 and
-     to an off-grid 8200 against their plain versions, with times, bwd
-     and exp on the cluster kernel and again on the global-scratch kernel
-     (in turns), and CPECAN_TPU_DEBUG=1 on a NaN transition there; a
-     record with an anchor-free 4.5 kb gap through the realign CLI
-     (parallel engine) and one EM iteration (exact engine) with
+ 12. wide bands (W > 4096, the kernels' wide variants): first F2 and F4,
+     every kernel (shared-memory, cluster and global-scratch) against its
+     plain version on backward totals of 0, inf and NaN and on rows whose
+     raw values hold a NaN (scale 1); the batch path's three kernels on a
+     full band of 1 kb pairs padded out to W=4352 and of 500 bp pairs
+     padded to an off-grid 8200 against their plain versions (fwd bit for
+     bit), with times, each on the cluster kernel and again on the
+     global-scratch kernel (in turns), at a cluster of 4, and fwd at each
+     of its slots per thread, and CPECAN_TPU_DEBUG=1 on a NaN transition
+     there; a record with an anchor-free 4.5 kb gap through the realign
+     CLI (parallel engine) and one EM iteration (exact engine) with
      --splitMatrixBiggerThanThis 5000, launch counts reset before and
      read after each, the launch plan of every wide launch (each must
      run a cluster), the widest window launch of each site against its
@@ -78,9 +82,9 @@ Phases (any failure raises, so the exit code is non-zero):
      fragments (bench.py:570-575's generator), with its stage split and
      fwd/bwd launch counts reset before and read after, then once more
      under torch.profiler for its device busy share; the same call on
-     the first 10 fragments on the card and on the CPU (equal columns and
+     the first 5 fragments on the card and on the CPU (equal columns and
      kept pairs, near-ties counted); the align CLI on 8 x 32 evolved 1 kb
-     sequences (256 pairs), pairs/s, and the first 2 x 4 pairs again with
+     sequences (256 pairs), pairs/s, and the first 2 x 2 pairs again with
      --device cpu (identical cigars);
  14. data parallel, on phase 4's records: (a) the EM expectation step at
      the EM defaults on a DataMesh of two shards on the one card against
@@ -94,6 +98,7 @@ Phases (any failure raises, so the exit code is non-zero):
      wavefront_fwd; (d) CPECAN_TPU_DEBUG=1 on the headline batch: the
      same outputs as unchecked, and a NaN transition raises "fb debug".
 
+Each phase's wall time is printed on a line of its own ("phase wall:").
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Imports no jax and nothing of cpecan_tpu
 (checked at the end on sys.modules), and reaches the system only through
@@ -128,8 +133,8 @@ TOLERANCES = {"log_fwd": (2e-5, 2e-5), "mf": (1e-4, 2e-5),
 FWD_KEYS = ("mf", "log_fwd")
 SEQ_LEN = 1000
 RECORDS = 1024
-MEA_RECORDS = 256
-COMPARE_RECORDS = 32
+MEA_RECORDS = 128
+COMPARE_RECORDS = 8
 EM_ITERATIONS = 3
 # expected counts: per-slot fp32 sums over the diagonals in the same order
 # as the plain version, then a block reduction in another order than
@@ -304,15 +309,27 @@ def _batches():
 
 
 @contextlib.contextmanager
-def _plain_versions():
+def _plain_versions(times=None):
     """Route the kernel wrappers, for every caller, to their plain
-    versions (which take the same arguments but the launch-count site)."""
+    versions (which take the same arguments but the launch-count site).
+    With a dict ``times``, each call's CUDA-event ms is appended to
+    times[kernel]."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     saved = wf.fwd, wf.bwd, wf.exp
-    plain = lambda ref: lambda *a, site=None, **kw: ref(*a, **kw)
-    wf.fwd, wf.bwd, wf.exp = (plain(wf.fwd_reference), plain(wf.bwd_reference),
-                              plain(wf.exp_reference))
+
+    def plain(ref, kind):
+        def call(*a, site=None, **kw):
+            if times is None:
+                return ref(*a, **kw)
+            out, ms = _timed(lambda: ref(*a, **kw))
+            times.setdefault(kind, []).append(ms)
+            return out
+        return call
+
+    wf.fwd, wf.bwd, wf.exp = (plain(wf.fwd_reference, "fwd"),
+                              plain(wf.bwd_reference, "bwd"),
+                              plain(wf.exp_reference, "exp"))
     try:
         yield
     finally:
@@ -451,7 +468,8 @@ def phase_kernels(card):
         args, mode, W = bt["args"], bt["mode"], bt["W"]
         B, P1 = args[2].shape
         got = wf.fb_pass_batch_wavefront(hmm, *args, mode=mode, width=W)
-        with _plain_versions():
+        plain_times = {}
+        with _plain_versions(plain_times):
             want = wf.fb_pass_batch_wavefront(hmm, *args, mode=mode, width=W)
         errs = _max_err(got, want, args[4].long() + args[5].long())
         summary["fwd"]["err"] = max(summary["fwd"]["err"],
@@ -469,21 +487,24 @@ def phase_kernels(card):
                 pre["abw"], pre["c1"], pre["c0"], pre["bm1"], pre["bm0"],
                 pre["pm"], pre["end_row"], hmm.nz, mode)
         ms = {"fwd": _median_ms(lambda: wf.fwd(*fin), 10),
-              "bwd": _median_ms(lambda: wf.bwd(*bin_), 10),
-              # the plain versions take seconds a call: one call each
-              "fwd_plain": _median_ms(lambda: wf.fwd_reference(*fin), 1),
-              "bwd_plain": _median_ms(lambda: wf.bwd_reference(*bin_), 1)}
+              "bwd": _median_ms(lambda: wf.bwd(*bin_), 10)}
+        plain = ""
+        if name.startswith("a_"):
+            # the plain versions take seconds a call: their one call each
+            # above, which made the outputs every batch is checked against
+            ms["fwd_plain"], = plain_times["fwd"]
+            ms["bwd_plain"], = plain_times["bwd"]
+            plain_s = (ms["fwd_plain"] + ms["bwd_plain"]) / 1e3
+            plain = (f"; plain fwd {ms['fwd_plain']:.1f} ms, bwd "
+                     f"{ms['bwd_plain']:.1f} ms, {bt['cells'] / plain_s:.4g} cells/s")
         direct = _bwd_direct(bin_, {}, hmm.state_number, W, 10, wf.bwd(*bin_))
         kern_s = (ms["fwd"] + ms["bwd"]) / 1e3
-        plain_s = (ms["fwd_plain"] + ms["bwd_plain"]) / 1e3
         log(f"kernels {name}: B={B} P={P1 - 1} W={W} {mode}, "
             f"{bt['cells']} in-band cells; max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
-        log(f"  {card}: fwd {ms['fwd']:.3f} ms (plain {ms['fwd_plain']:.1f} ms), "
-            f"bwd {ms['bwd']:.3f} ms (plain {ms['bwd_plain']:.1f} ms); "
-            f"fwd+bwd {bt['cells'] / kern_s:.4g} cells/s "
-            f"(plain {bt['cells'] / plain_s:.4g} cells/s); kernel launches "
-            f"so far in this phase {wf.LAUNCHES}")
+        log(f"  {card}: fwd {ms['fwd']:.3f} ms, bwd {ms['bwd']:.3f} ms; "
+            f"fwd+bwd {bt['cells'] / kern_s:.4g} cells/s{plain}; kernel "
+            f"launches so far in this phase {wf.LAUNCHES}")
         if direct is not None:
             log(f"  {card}: bwd ring {ms['bwd']:.3f} ms, its direct-load "
                 f"variant {direct:.3f} ms ({1e3 * ms['bwd'] / P1:.3f} and "
@@ -508,12 +529,12 @@ def phase_kernels(card):
     # 512 threads): a full band of evolved 2.5 kb pairs, as an unanchored
     # multi-kb gap of an EM chunk gives it
     hmm = PairHMM.from_state_machine(state_machine5()).cuda()
-    bt = _band_batch(np.random.default_rng(1), 4, 5120, "posterior_match",
+    bt = _band_batch(np.random.default_rng(1), 2, 5120, "posterior_match",
                      state_machine5, full=True, evolve=True, seq_len=2500)
     if bt["W"] <= wf.EXP_SHARED_WIDTH:
         raise AssertionError(f"wide batch has W={bt['W']}")
     _, err, _ = _check_exp(wf, hmm, bt["args"], bt["W"],
-                           "f_wide_full_band_B4_2500", card, reps=3)
+                           "f_wide_full_band_B2_2500", card, reps=3)
     summary["exp"]["err"] = max(summary["exp"]["err"], err)
     torch.cuda.empty_cache()
     for k, v in summary.items():
@@ -524,7 +545,7 @@ def phase_kernels(card):
 
 
 # bwd's width sweep: B pairs of SWEEP_P bases (R = SWEEP_P + 1 diagonals)
-SWEEP_B, SWEEP_P = 64, 1024
+SWEEP_B, SWEEP_P = 64, 256
 SWEEP_WIDTHS = (32, 128, 544, 1024, 1664, 2048, 4096)
 
 
@@ -1114,8 +1135,8 @@ def phase_em_card_cpu(tmp, fasta, cigars):
 LONG_PAIR = 500_000
 LONG_RECORDS = (100_000, 150_000, 200_000)
 LONG_EM_RECORDS = (100_000, 100_000)
-FORCED_RECORDS = (3_000, 3_200)  # streamed by a patched budget, card vs CPU
-CHECK_PAIR, CHECK_WINDOW, CHECK_BURNIN = 2_000, 128, 64
+FORCED_RECORDS = (1_000, 1_100)  # streamed by a patched budget, card vs CPU
+CHECK_PAIR, CHECK_WINDOW, CHECK_BURNIN = 600, 128, 64
 # realign through anchor-free gaps up to 3000 x 3000 (the library's and
 # EM's split), so a long anchored record stays one chunk
 LONG_SPLIT = ["--splitMatrixBiggerThanThis", "3000"]
@@ -1192,9 +1213,10 @@ _OUT_KEYS = {"fwd": {"out.2": "mf"},
 def _check_site(site, entry, S, nz, what, card, reps=5):
     """One captured launch of ``site`` again, on its own inputs (tensors on
     the card), through the kernel and through its plain version: outputs
-    within the tolerances (TOLERANCES; counts EXP_RTOL; F, bv and the
-    carries rtol 1e-4 against a row max of 1), CUDA-event medians of both,
-    and the bound. Returns (max_abs_err, ms, plain_ms, (bound_ms, by))."""
+    within the tolerances (TOLERANCES; counts EXP_RTOL; the backward
+    carries rtol 1e-4 against a row max of 1; fwd's F, bv, mf and carries
+    bit for bit), CUDA-event medians of both, and the bound. Returns
+    (max_abs_err, ms, plain_ms, (bound_ms, by))."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     kind = SITES[site][0]
@@ -1208,6 +1230,9 @@ def _check_site(site, entry, S, nz, what, card, reps=5):
         g, w_ = g.float().cpu(), w_.float().cpu()
         if not torch.isfinite(g).all():
             raise AssertionError(f"{site} output {name} is not finite")
+        if kind == "fwd" and not torch.equal(g, w_):
+            # wavefront_fwd and the wide fwd kernels round as fwd_reference
+            raise AssertionError(f"{site} {name}: not bit-equal to fwd_reference")
         key = _OUT_KEYS[kind].get(name)
         if key == "counts":
             tol = (EXP_RTOL, 1e-6)
@@ -1338,8 +1363,8 @@ def _likelihood(o, L):
 
 
 def phase_long_kernels(card, sites):
-    """Kernels with carries against their plain versions on a 2 kb
-    evolved pair (windows of CHECK_WINDOW rows, tens of them): the exact
+    """Kernels with carries against their plain versions on an evolved
+    pair of CHECK_PAIR bases (windows of CHECK_WINDOW rows): the exact
     engine in every mode and the parallel engine, each run through the
     kernels and again through their plain versions on the same card
     tensors; the exact engine's scale streams and posteriors against the
@@ -1388,7 +1413,8 @@ def phase_long_kernels(card, sites):
                                f"{engine} {mode} kernels vs plain ({launches})")
         for site, entry in kept.items():
             e, ms, _, _ = _check_site(site, entry, sm.state_number, hmm.nz,
-                                      "one 2 kb window", card, reps=10)
+                                      f"one window of the {CHECK_PAIR} bp pair", card,
+                                      reps=10)
             sites[site]["err"] = max(sites[site]["err"], err, e)
             sites[site]["ms_2kb"] = ms
         if (mode, engine) == ("posterior_all", "exact"):
@@ -1776,12 +1802,13 @@ def phase_long_em(card, tmp, short_seqs, short_cigars, sites):
 
 
 # bands wider than the shared-memory variants take (wide variants): a
-# full band of two evolved 1 kb pairs padded out to these widths (the
-# second off the 16-byte grid; the kernels' work per diagonal is set by
-# W, while the plain versions' time grows with R); and a record whose cigar leaves an anchor-free 4.5 kb gap
-# between two 1 kb flanks, realigned (and trained on) with the split at
-# 5000 x 5000, so the gap stays in one chunk
-WIDE_WIDTHS = (4352, 8200)
+# full band of two evolved pairs padded out to each width, (W, the pairs'
+# length): 1 kb pairs at 4352, 500 bp ones at 8200 (off the 16-byte grid;
+# the kernels' work per diagonal is set by W, while the plain versions'
+# time grows with R); and a record whose cigar leaves an anchor-free 4.5
+# kb gap between two 1 kb flanks, realigned (and trained on) with the
+# split at 5000 x 5000, so the gap stays in one chunk
+WIDE_BATCHES = ((4352, SEQ_LEN), (8200, SEQ_LEN // 2))
 GAP_FLANK, GAP_MIDDLE = 1000, 4500
 GAP_SPLIT = ["--splitMatrixBiggerThanThis", "5000"]
 
@@ -1799,8 +1826,8 @@ def _timed(fn):
 
 @contextlib.contextmanager
 def _cluster_limit(cluster):
-    """wavefront_back_wide's cluster size for the block (0: the
-    global-scratch kernel at every width)."""
+    """The wide kernels' cluster size for the block (0: the global-scratch
+    kernels at every width)."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     before = wf.set_cluster_limit(cluster)
@@ -1808,6 +1835,14 @@ def _cluster_limit(cluster):
         yield
     finally:
         wf.set_cluster_limit(before)
+
+
+def _wide_plan(kind, S, W):
+    """The launch plan of a wide launch of ``kind`` at (S, W)."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    return (wf.fwd_wide_plan(S, W) if kind == "fwd"
+            else wf.back_wide_plan(S, W, kind == "exp"))
 
 
 def _plan_text(plan, W):
@@ -1819,27 +1854,31 @@ def _plan_text(plan, W):
 
 @contextlib.contextmanager
 def _wide_plans():
-    """Every bwd and exp wrapper call at W > MAX_KERNEL_WIDTH while the
-    block runs: (site, B, R, W, its launch plan), in call order."""
+    """Every fwd, bwd and exp wrapper call at W > MAX_KERNEL_WIDTH while
+    the block runs: (site, B, R, W, its launch plan), in call order."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
-    saved = wf.bwd, wf.exp
+    saved = wf.fwd, wf.bwd, wf.exp
     seen = []
 
     def wrap(fn, kind):
         def call(*args, site=kind, **kw):
             B, R, W = args[1].shape
             if W > wf.MAX_KERNEL_WIDTH:
-                S = args[7 if kind == "exp" else 5].shape[2]
-                seen.append((site, B, R, W, wf.back_wide_plan(S, W, kind == "exp")))
+                if kind == "fwd":  # F0, or a window's carry in
+                    S = (args[7] if args[7] is not None else kw["carry"][0]).shape[1]
+                else:  # F
+                    S = args[5 if kind == "bwd" else 7].shape[2]
+                seen.append((site, B, R, W, _wide_plan(kind, S, W)))
             return fn(*args, site=site, **kw)
         return call
 
-    wf.bwd, wf.exp = wrap(saved[0], "bwd"), wrap(saved[1], "exp")
+    wf.fwd, wf.bwd, wf.exp = (wrap(saved[0], "fwd"), wrap(saved[1], "bwd"),
+                              wrap(saved[2], "exp"))
     try:
         yield seen
     finally:
-        wf.bwd, wf.exp = saved
+        wf.fwd, wf.bwd, wf.exp = saved
 
 
 def _log_wide_plans(seen, what):
@@ -1850,11 +1889,13 @@ def _log_wide_plans(seen, what):
             raise AssertionError(f"{what}: {site} at W={W} ran no cluster")
 
 
-def _special_back_inputs(rng, hmm, B, R, W, kernel):
+def _special_back_inputs(rng, hmm, B, R, W, kernel, nan_row=None):
     """bwd's or exp's arguments (card tensors) at random, as
     tests/test_torch_nan.py makes them: row 3 with F zero and no bridge
     (total 0), one F value inf on row 7 (total inf) and one NaN on row 11
-    (total NaN)."""
+    (total NaN); or, with ``nan_row`` (F4), one NaN in pair 0's efx at
+    slot 5 of that norm row (raw B NaN there and on every row below) and
+    each pair's at-end row at R - 1."""
     S = hmm.state_number
 
     def unif(*shape, lo=0.0):
@@ -1870,10 +1911,15 @@ def _special_back_inputs(rng, hmm, B, R, W, kernel):
     efx, efy, efm, em = (unif(B, R, W, lo=0.1) for _ in range(4))
     F, bv, sel = unif(B, R, S, W), unif(B, R, W), [bits(B, R) for _ in range(5)]
     end_row = unif(B, S, W)
-    F[:, 3] = 0.0
-    pm[:, 3] &= ~16
-    F[:, 7, 1, 5] = float("inf")
-    F[:, 11, 0, 9] = float("nan")
+    if nan_row is None:
+        F[:, 3] = 0.0
+        pm[:, 3] &= ~16
+        F[:, 7, 1, 5] = float("inf")
+        F[:, 11, 0, 9] = float("nan")
+    else:
+        pm &= ~8
+        pm[:, R - 1] |= 8
+        efx[0, nan_row, 5] = float("nan")
     t = hmm.t_prob_host
     if kernel == "bwd":
         return (t, efx, efy, efm, em, F, bv, *sel, pm, end_row, hmm.nz,
@@ -1887,48 +1933,105 @@ def _special_back_inputs(rng, hmm, B, R, W, kernel):
             *adj, *sym, hmm.nz)
 
 
+def _nan_fwd_inputs(rng, hmm, B, R, W, nan_row):
+    """fwd's arguments (card tensors) at random, as
+    tests/test_torch_wavefront.py's random_fwd_inputs makes them, with one
+    NaN in pair 0's ex at slot 5 of the norm row ``nan_row`` (F4: raw F
+    NaN there and on every row after)."""
+    S = hmm.state_number
+    unif = lambda *shape, lo=0.0: torch.from_numpy(
+        rng.uniform(lo, 1.0, shape).astype(np.float32)).cuda()
+    bits = [torch.from_numpy((rng.random((B, R)) < 0.5).astype(np.int8)).cuda()
+            for _ in range(3)]
+    ex, ey, em = (unif(B, R, W, lo=0.1) for _ in range(3))
+    ex[0, nan_row, 5] = float("nan")
+    return (hmm.t_prob_host, ex, ey, em, *bits, unif(B, S, W), hmm.nz)
+
+
+# F4's NaN rows (norm rows of the batch path at R = 17): fwd's and the
+# backward kernels'
+NAN_ROW = {"fwd": 7, "bwd": 11, "exp": 11}
+# where each kernel's outputs hold its row scales (mf or mb)
+_SCALE_OUT = {"fwd": "out.2", "bwd": "out.1", "exp": "out.2"}
+
+
 def _nan_totals(card):
-    """F2: bwd and exp (shared-memory variants at W=128), the cluster
-    kernel and the global-scratch kernel (W=4224) against their plain
-    versions on rows whose per-diagonal total is 0, inf and NaN: NaN and
-    inf exactly where the plain versions have them, the rest within the
-    usual tolerances."""
+    """F2 and F4: bwd and exp (shared-memory variants at W=128), the
+    cluster kernels and the global-scratch kernels (W=4224) against their
+    plain versions on rows whose per-diagonal total is 0, inf and NaN,
+    and all three kernels, fwd too, on rows whose raw values hold a NaN
+    (scale 1, mf / mb 0): NaN and inf exactly where the plain versions
+    have them, mf / mb bit for bit where the plain version's is 0 (fwd's
+    outputs everywhere), the rest within the usual tolerances."""
     from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     hmm = PairHMM.from_state_machine(state_machine5()).cuda()
-    for kernel in ("bwd", "exp"):
+    for kernel in ("fwd", "bwd", "exp"):
         for W, cluster in ((128, None), (4224, 8), (4224, 0)):
-            args = _special_back_inputs(np.random.default_rng(W), hmm, 2, 17, W,
-                                        kernel)
-            with (_cluster_limit(cluster) if cluster is not None
-                  else contextlib.nullcontext()):
-                if cluster is not None and \
-                        wf.back_wide_plan(5, W, kernel == "exp")["cluster"] != cluster:
-                    raise AssertionError(f"F2 {kernel}: plan is not cluster {cluster}")
-                got = _flat(getattr(wf, kernel)(*args))
-            want = _flat(getattr(wf, f"{kernel}_reference")(*args))
-            torch.cuda.synchronize()
-            what = f"F2 {kernel} W={W} cluster={cluster}"
-            for (name, g), (_, w_) in zip(got, want):
-                g, w_ = g.cpu(), w_.cpu()
-                if not (torch.equal(g.isnan(), w_.isnan())
-                        and torch.equal(g.isinf(), w_.isinf())):
-                    raise AssertionError(f"{what} {name}: NaN/inf elsewhere "
-                                         f"than the plain version's")
-                key = _OUT_KEYS[kernel].get(name)
-                tol = ((EXP_RTOL, 1e-7) if key == "counts" else (0.0, 1e-5)
-                       if key == "exp_rows" else TOLERANCES.get(key, (1e-4, 1e-6)))
-                torch.testing.assert_close(g, w_, rtol=tol[0], atol=tol[1],
-                                           equal_nan=True, msg=f"{what} {name}")
-            tot = dict(got)["out.2" if kernel == "bwd" else "out.3"].cpu()
-            if not (tot[:, 3].eq(0).all() and tot[:, 7].isposinf().all()
-                    and tot[:, 11].isnan().all()):
-                raise AssertionError(f"{what}: total_raw rows 3, 7, 11 are "
-                                     f"{tot[:, [3, 7, 11]].tolist()}")
-            log(f"F2 {kernel} at W={W} ({'shared-memory variant' if cluster is None else _plan_text(wf.back_wide_plan(5, W, kernel == 'exp'), W) if cluster else 'global-scratch kernel'}): "
-                f"total_raw 0, inf and NaN on the rows the plain version has "
-                f"them, NaN/inf patterns of every output equal ({card})")
+            cases = {"F4 NaN rows": (
+                _nan_fwd_inputs(np.random.default_rng(W), hmm, 2, 17, W,
+                                NAN_ROW[kernel]) if kernel == "fwd" else
+                _special_back_inputs(np.random.default_rng(W + 1), hmm, 2, 17,
+                                     W, kernel, NAN_ROW[kernel]))}
+            if kernel != "fwd":
+                cases["F2 totals"] = _special_back_inputs(
+                    np.random.default_rng(W), hmm, 2, 17, W, kernel)
+            for case, args in cases.items():
+                with (_cluster_limit(cluster) if cluster is not None
+                      else contextlib.nullcontext()):
+                    if cluster is not None and \
+                            _wide_plan(kernel, 5, W)["cluster"] != cluster:
+                        raise AssertionError(f"{case} {kernel}: plan is not "
+                                             f"cluster {cluster}")
+                    got_out = getattr(wf, kernel)(*args)
+                    got = _flat(got_out)
+                want_out = getattr(wf, f"{kernel}_reference")(*args)
+                want = _flat(want_out)
+                torch.cuda.synchronize()
+                what = f"{case} {kernel} W={W} cluster={cluster}"
+                if kernel == "fwd" and not all(
+                        torch.equal(g.isnan(), w_.isnan())
+                        and torch.equal(g.nan_to_num(), w_.nan_to_num())
+                        for (_, g), (_, w_) in zip(got, want)):
+                    raise AssertionError(f"{what}: not bit-equal to fwd_reference")
+                for (name, g), (_, w_) in zip(got, want):
+                    g, w_ = g.cpu(), w_.cpu()
+                    if not (torch.equal(g.isnan(), w_.isnan())
+                            and torch.equal(g.isinf(), w_.isinf())):
+                        raise AssertionError(f"{what} {name}: NaN/inf elsewhere "
+                                             f"than the plain version's")
+                    key = _OUT_KEYS[kernel].get(name)
+                    tol = ((EXP_RTOL, 1e-7) if key == "counts" else (0.0, 1e-5)
+                           if key == "exp_rows" else TOLERANCES.get(key, (1e-4, 1e-6)))
+                    torch.testing.assert_close(g, w_, rtol=tol[0], atol=tol[1],
+                                               equal_nan=True, msg=f"{what} {name}")
+                sg = dict(got)[_SCALE_OUT[kernel]].cpu()
+                sw = dict(want)[_SCALE_OUT[kernel]].cpu()
+                zero = sw == 0
+                if not torch.equal(sg[zero], sw[zero]):
+                    raise AssertionError(f"{what}: mf / mb not 0 where the "
+                                         f"plain version's is")
+                if case == "F2 totals":
+                    tot = dict(got)["out.2" if kernel == "bwd" else "out.3"].cpu()
+                    if not (tot[:, 3].eq(0).all() and tot[:, 7].isposinf().all()
+                            and tot[:, 11].isnan().all()):
+                        raise AssertionError(f"{what}: total_raw rows 3, 7, 11 "
+                                             f"are {tot[:, [3, 7, 11]].tolist()}")
+                else:
+                    r = NAN_ROW[kernel]
+                    if sg[0, r] != 0 or sg[1, r] == 0:
+                        raise AssertionError(f"{what}: row {r}'s scales "
+                                             f"{sg[:, r].tolist()}")
+                variant = ("shared-memory variant" if cluster is None else
+                           _plan_text(_wide_plan(kernel, 5, W), W) if cluster
+                           else "global-scratch kernel")
+                log(f"{case}, {kernel} at W={W} ({variant}): "
+                    + ("total_raw 0, inf and NaN on the rows the plain version "
+                       "has them" if case == "F2 totals" else
+                       f"scale 1 (mf / mb 0) on row {NAN_ROW[kernel]} and the "
+                       f"rows the NaN reaches")
+                    + f", NaN/inf patterns of every output equal ({card})")
 
 
 def _nan_debug_on_card(bt, hmm, card):
@@ -1955,19 +2058,28 @@ def _nan_debug_on_card(bt, hmm, card):
         os.environ.pop("CPECAN_TPU_DEBUG", None)
 
 
+def _bit_equal(got, want):
+    """Whether two (nested) wrapper outputs are equal bit for bit, as fwd's
+    kernels and fwd_reference are (they round alike)."""
+    return all(torch.equal(g, w_) for (_, g), (_, w_) in zip(_flat(got), _flat(want)))
+
+
 def _wide_batch(card, sites):
     """The batch path's three kernels at W > MAX_KERNEL_WIDTH (the wide
-    variants) against their plain versions on the same card tensors, with
-    times; the first width's numbers go to the JSON summary."""
+    variants: the cluster kernels) against their plain versions on the
+    same card tensors (fwd bit for bit), with times; each against the
+    global-scratch kernel on the same inputs (fwd bit for bit), times in
+    turns, and at a cluster of 4. The first width's numbers go to the JSON
+    summary."""
     from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     hmm = PairHMM.from_state_machine(state_machine5()).cuda()
     S = hmm.state_number
-    for width in WIDE_WIDTHS:
-        bt = _band_batch(np.random.default_rng(5), 2, 2 * SEQ_LEN + 200,
+    for width, seq_len in WIDE_BATCHES:
+        bt = _band_batch(np.random.default_rng(5), 2, 2 * seq_len + 200,
                          "posterior_all", state_machine5, full=True,
-                         evolve=True, seq_len=SEQ_LEN, width=width)
+                         evolve=True, seq_len=seq_len, width=width)
         W = bt["W"]
         if W <= wf.MAX_KERNEL_WIDTH:
             raise AssertionError(f"wide batch has W={W}")
@@ -1984,8 +2096,10 @@ def _wide_batch(card, sites):
 
         def errs(k, got, want):
             if k == "fwd":
-                torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
-                return max(_max_err({"mf": got[2]}, {"mf": want[2]}, L).values())
+                if not _bit_equal(got, want):
+                    raise AssertionError(f"wide fwd at W={W}: not bit-equal to "
+                                         f"fwd_reference")
+                return 0.0
             if k == "bwd":
                 keys = ("post_match", "post_gap_x", "post_gap_y")
                 return max(_max_err(
@@ -1995,48 +2109,53 @@ def _wide_batch(card, sites):
             return _exp_errs(got, want, L)[0]
 
         for k, args in (("fwd", fin), ("bwd", bin_), ("exp", ein)):
-            got = getattr(wf, k)(*args)
-            ms = _median_ms(lambda: getattr(wf, k)(*args), 3)
+            run = lambda: getattr(wf, k)(*args)
+            got = run()
+            ms = _median_ms(run, 3)
             want, plain_ms = _timed(lambda: getattr(wf, f"{k}_reference")(*args))
             err = errs(k, got, want)
             res[k] = (err, ms, plain_ms, _bound(B, R, W, S, hmm.nz, k))
-            variant = ""
-            if k != "fwd":
-                # the cluster variant ran; the global-scratch kernel on the
-                # same inputs, against the same plain outputs, in turns
-                variant = _plan_text(wf.back_wide_plan(S, W, k == "exp"), W)
-                if "cluster 0" in variant:
-                    raise AssertionError(f"wide {k} at W={W}: no cluster ({variant})")
-                with _cluster_limit(0):
-                    g_err = errs(k, getattr(wf, k)(*args), want)
-                    g_ms = _median_ms(lambda: getattr(wf, k)(*args), 3)
-                ms2 = _median_ms(lambda: getattr(wf, k)(*args), 3)
-                with _cluster_limit(0):
-                    g_ms2 = _median_ms(lambda: getattr(wf, k)(*args), 3)
-                variant = (f"; {variant}; global-scratch kernel {g_ms:.3f} / "
-                           f"{g_ms2:.3f} ms against cluster {ms:.3f} / {ms2:.3f} "
-                           f"(in turns), its max abs err {g_err:.3g}")
-                # the plan's cluster size against a smaller one (where the
-                # band fits a cluster of 4), for the choice of 8
-                with _cluster_limit(4):
-                    plan4 = wf.back_wide_plan(S, W, k == "exp")
-                    if plan4["cluster"]:
-                        errs(k, getattr(wf, k)(*args), want)
-                        c4_ms = _median_ms(lambda: getattr(wf, k)(*args), 3)
-                        variant += (f"; {_plan_text(plan4, W)}: {c4_ms:.3f} ms "
-                                    f"({1e3 * c4_ms / R:.2f} us per diagonal)")
+            plan = _wide_plan(k, S, W)
+            if not plan["cluster"]:
+                raise AssertionError(f"wide {k} at W={W}: no cluster "
+                                     f"({_plan_text(plan, W)})")
+            # the global-scratch kernel on the same inputs, against the
+            # same plain outputs (fwd: and the cluster's, bit for bit), in
+            # turns
+            with _cluster_limit(0):
+                g_out = run()
+                g_err = errs(k, g_out, want)
+                g_ms = _median_ms(run, 3)
+            if k == "fwd" and not _bit_equal(got, g_out):
+                raise AssertionError(f"wide fwd at W={W}: cluster and "
+                                     f"global-scratch kernels differ")
+            ms2 = _median_ms(run, 3)
+            with _cluster_limit(0):
+                g_ms2 = _median_ms(run, 3)
+            variant = (f"; {_plan_text(plan, W)}; global-scratch kernel "
+                       f"{g_ms:.3f} / {g_ms2:.3f} ms against cluster {ms:.3f} / "
+                       f"{ms2:.3f} (in turns, {g_ms / ms:.2f}x), its max abs err "
+                       f"{g_err:.3g}")
+            # a smaller cluster, where the band fits one of 4, against the
+            # same plain outputs
+            with _cluster_limit(4):
+                alt = _wide_plan(k, S, W)
+                if alt["cluster"]:
+                    errs(k, run(), want)
+                    variant += f"; {_plan_text(alt, W)} checked"
             log(f"wide {k}: B={B} R={R} W={W}; kernel {ms:.3f} ms "
                 f"({1e3 * ms / R:.2f} us per diagonal), plain {plain_ms:.1f} ms, "
                 f"bound {res[k][3][0]:.4f} ms ({res[k][3][1]}), max abs err "
-                f"{err:.3g} ({card}){variant}")
+                f"{err:.3g}{' (bit-equal)' if k == 'fwd' else ''} ({card}){variant}")
         if any(wf.LAUNCHES[f"wide_{k}"] <= 0 for k in ("fwd", "bwd", "exp")):
             raise AssertionError(f"wide variants not launched: {wf.LAUNCHES}")
-        if width == WIDE_WIDTHS[0]:
+        first = width == WIDE_BATCHES[0][0]
+        if first:
             _nan_debug_on_card(bt, hmm, card)
         for k, (err, ms, plain_ms, bound) in res.items():
             v = sites[f"wide_{k}"]
             v["err"] = max(v["err"], err)
-            if width == WIDE_WIDTHS[0]:
+            if first:
                 v.update(ms=ms, plain_ms=plain_ms, bound=bound)
         del bt, pre, ein, fin, bin_
         torch.cuda.empty_cache()
@@ -2044,16 +2163,19 @@ def _wide_batch(card, sites):
 
 def _global_variant(site, entry, ms, card):
     """The global-scratch kernel on a captured wide launch's inputs: its
-    outputs against the cluster kernel's (the kernel tests' tolerances)
-    and its time beside the cluster's (``ms``), in turns."""
+    outputs against the cluster kernel's (the kernel tests' tolerances;
+    fwd's bit for bit) and its time beside the cluster's (``ms``), in
+    turns."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     kind = SITES[site][0]
     args, kw = entry
     run = lambda: getattr(wf, kind)(*args, site=site, **kw)
-    cl = _flat(run())
+    cl_out = run()
+    cl = _flat(cl_out)
     with _cluster_limit(0):
-        gl = _flat(run())
+        gl_out = run()
+        gl = _flat(gl_out)
         g_ms = _median_ms(run, 3)
     ms2 = _median_ms(run, 3)
     torch.cuda.synchronize()
@@ -2064,9 +2186,11 @@ def _global_variant(site, entry, ms, card):
         torch.testing.assert_close(c, g, rtol=tol[0], atol=tol[1],
                                    msg=f"{site} cluster vs global {name}")
     B, R, W = args[1].shape
+    if kind == "fwd" and not _bit_equal(cl_out, gl_out):
+        raise AssertionError(f"{site}: cluster and global-scratch kernels differ")
     log(f"    the global-scratch kernel on the same inputs (B={B} R={R} W={W}): "
         f"{g_ms:.3f} ms ({1e3 * g_ms / R:.2f} us per diagonal) against the "
-        f"cluster's {ms:.3f} / {ms2:.3f} ms (in turns; {card})")
+        f"cluster's {ms:.3f} / {ms2:.3f} ms (in turns, {g_ms / ms:.2f}x; {card})")
 
 
 def _gap_record(seed):
@@ -2119,8 +2243,9 @@ def phase_wide(card, tmp, sites):
         if not launches.get(k):
             raise AssertionError(f"{k} not launched by the gap record: {launches}")
         sites[k]["launches"] = launches[k]
-    if launches.get("cluster_bwd") != launches["wide_bwd"]:
-        raise AssertionError(f"wide bwd launches without a cluster: {launches}")
+    for k in ("fwd", "bwd"):
+        if launches.get(f"cluster_{k}") != launches[f"wide_{k}"]:
+            raise AssertionError(f"wide {k} launches without a cluster: {launches}")
     _log_wide_plans(seen, "gap record realign")
     _check_cigars(out, cigars)
     if set(kept) != {"par_fwd", "par_bwd"}:
@@ -2133,8 +2258,7 @@ def phase_wide(card, tmp, sites):
                                 "the gap record's widest window", card, reps=3)
         k = f"wide_{SITES[site][0]}"
         sites[k]["err"] = max(sites[k]["err"], e)
-        if SITES[site][0] == "bwd":
-            _global_variant(site, entry, ms, card)
+        _global_variant(site, entry, ms, card)
 
     p = realign.alignment_parameters(
         realign.make_parser().parse_args([fasta] + GAP_SPLIT))
@@ -2152,37 +2276,41 @@ def phase_wide(card, tmp, sites):
 
     torch.cuda.synchronize()
     wf.reset_launch_counts()
-    with _capture(("seg_exp",), width) as kept, _wide_plans() as seen:
+    with _capture(("seg_fwd", "seg_exp"), width) as kept, _wide_plans() as seen:
         t0 = time.perf_counter()
         model = _em(fasta, cig, f"{tmp}/gap.hmm", "cuda",
                     ["--iterations", "1"] + GAP_SPLIT)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     launches = {k: v for k, v in wf.LAUNCHES.items() if v}
-    if not launches.get("wide_exp") or "seg_exp" not in kept:
+    if not launches.get("wide_exp") or set(kept) != {"seg_fwd", "seg_exp"}:
         raise AssertionError(f"EM on the gap record launched no wide, streamed "
-                             f"exp: {launches}")
-    if launches.get("cluster_exp") != launches["wide_exp"]:
-        raise AssertionError(f"wide exp launches without a cluster: {launches}")
+                             f"fwd and exp: {launches}")
+    for k in ("fwd", "exp"):
+        if launches.get(f"cluster_{k}") != launches[f"wide_{k}"]:
+            raise AssertionError(f"wide {k} launches without a cluster: {launches}")
     _log_wide_plans(seen, "gap record em")
     sites["wide_exp"]["launches"] = launches["wide_exp"]
     if not np.isfinite(model.likelihood):
         raise AssertionError(f"gap record EM likelihood {model.likelihood}")
     log(f"gap record em, 1 iteration: {dt:.2f} s on {card}; likelihood "
         f"{model.likelihood}; launches {launches}")
-    e, ms, *_ = _check_site("seg_exp", kept["seg_exp"], 5, wf.KERNEL_NZ[5],
-                            "the gap record's widest exp window", card, reps=3)
-    sites["wide_exp"]["err"] = max(sites["wide_exp"]["err"], e)
-    _global_variant("seg_exp", kept["seg_exp"], ms, card)
+    for site in ("seg_fwd", "seg_exp"):
+        kind = SITES[site][0]
+        e, ms, *_ = _check_site(site, kept[site], 5, wf.KERNEL_NZ[5],
+                                f"the gap record's widest {kind} window", card,
+                                reps=3)
+        sites[f"wide_{kind}"]["err"] = max(sites[f"wide_{kind}"]["err"], e)
+        _global_variant(site, kept[site], ms, card)
     torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ MSA and align
 
 
-MSA_SEQS, MSA_LEN, MSA_COMPARE = 100, 1000, 10
+MSA_SEQS, MSA_LEN, MSA_COMPARE = 100, 1000, 5
 ALIGN_TARGETS, ALIGN_QUERIES = 8, 32
-ALIGN_COMPARE = (2, 4)  # targets x queries run again on the CPU
+ALIGN_COMPARE = (2, 2)  # targets x queries run again on the CPU
 # kept MSA pairs are AMAP-reweighted, prob - gapGamma * (indel_x +
 # indel_y), each indel term 1e7 minus its row's (column's) posteriors: a
 # kept pair moves by its own error (<= 100) plus 0.5 x those of up to 9
@@ -2698,13 +2826,28 @@ def _no_jax_package():
         raise AssertionError(f"modules of jax or the JAX package loaded: {bad}")
 
 
+@contextlib.contextmanager
+def _wall(phase):
+    """Logs the wall time of the block, a phase of the run, on its own line."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase wall: {phase}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
-    card, smi = phase_device()
-    ptxas = phase_build()
-    summary = phase_kernels(card)
-    phase_fwd_sweep(card, ptxas)
-    phase_bwd_sweep(card, ptxas)
-    phase_exp_sweep(card, ptxas)
+    t0 = time.perf_counter()
+    with _wall("1 device"):
+        card, smi = phase_device()
+    with _wall("2 build"):
+        ptxas = phase_build()
+    with _wall("3 kernels"):
+        summary = phase_kernels(card)
+    with _wall("3 fwd sweep"):
+        phase_fwd_sweep(card, ptxas)
+    with _wall("3 bwd sweep"):
+        phase_bwd_sweep(card, ptxas)
+    with _wall("3 exp sweep"):
+        phase_exp_sweep(card, ptxas)
 
     seqs, cigars = _records(RECORDS)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2712,34 +2855,43 @@ def main() -> int:
         with open(fasta, "w") as fh:
             for k, v in seqs.items():
                 fh.write(f">{k}\n{v}\n")
-        launches, out = _run_realign(fasta, cigars, [], card)
-        _, mea_out = _run_realign(fasta, cigars[:MEA_RECORDS], ["--mea"], card)
-        some = cigars[:COMPARE_RECORDS]
-        near_ties = _compare_card_cpu(fasta, seqs, some)
-        _compare_cli(fasta, some, out[:COMPARE_RECORDS], [])
-        _compare_cli(fasta, some, mea_out[:COMPARE_RECORDS], ["--mea"],
-                     near_ties)
+        with _wall("4 realign"):
+            launches, out = _run_realign(fasta, cigars, [], card)
+            _, mea_out = _run_realign(fasta, cigars[:MEA_RECORDS], ["--mea"], card)
+        with _wall("5 realign card vs CPU"):
+            some = cigars[:COMPARE_RECORDS]
+            near_ties = _compare_card_cpu(fasta, seqs, some)
+            _compare_cli(fasta, some, out[:COMPARE_RECORDS], [])
+            _compare_cli(fasta, some, mea_out[:COMPARE_RECORDS], ["--mea"],
+                         near_ties)
 
-        phase_em_kernel(seqs, cigars, card, summary)
-        cig = f"{tmp}/records.cigar"
-        _write_cigars(cig, cigars)
-        em_launches, _ = _run_em(fasta, cig, f"{tmp}/em5.hmm", RECORDS, [
-            "--modelType", "fiveState", "--iterations", str(EM_ITERATIONS)],
-            card)
-        _run_em(fasta, cig, f"{tmp}/em3.hmm", RECORDS, [
-            "--modelType", "threeState", "--iterations", "1"], card)
-        phase_em_profile(fasta, cig, tmp, card)
-        phase_em_card_cpu(tmp, fasta, some)
+        with _wall("6 em"):
+            phase_em_kernel(seqs, cigars, card, summary)
+            cig = f"{tmp}/records.cigar"
+            _write_cigars(cig, cigars)
+            em_launches, _ = _run_em(fasta, cig, f"{tmp}/em5.hmm", RECORDS, [
+                "--modelType", "fiveState", "--iterations", str(EM_ITERATIONS)],
+                card)
+            _run_em(fasta, cig, f"{tmp}/em3.hmm", RECORDS, [
+                "--modelType", "threeState", "--iterations", "1"], card)
+            phase_em_profile(fasta, cig, tmp, card)
+        with _wall("7 em card vs CPU"):
+            phase_em_card_cpu(tmp, fasta, some)
 
         sites = {k: {"err": 0.0} for k in LONG_SITES + WIDE_SITES}
-        phase_long_kernels(card, sites)
-        phase_long_pair(card, sites)
-        phase_long_realign(card, tmp)
-        phase_long_em(card, tmp, seqs, cigars, sites)
-        phase_wide(card, tmp, sites)
-        phase_msa_align(card, tmp)
-        phase_data_parallel(card, tmp, fasta, cig, seqs, cigars)
+        for phase, run in (
+                ("8 long kernels", lambda: phase_long_kernels(card, sites)),
+                ("9 long pair", lambda: phase_long_pair(card, sites)),
+                ("10 long records", lambda: phase_long_realign(card, tmp)),
+                ("11 long em", lambda: phase_long_em(card, tmp, seqs, cigars, sites)),
+                ("12 wide bands", lambda: phase_wide(card, tmp, sites)),
+                ("13 msa and align", lambda: phase_msa_align(card, tmp)),
+                ("14 data parallel", lambda: phase_data_parallel(
+                    card, tmp, fasta, cig, seqs, cigars))):
+            with _wall(phase):
+                run()
     _no_jax_package()
+    log(f"phase wall: all: {time.perf_counter() - t0:.1f} s")
 
     # launches: fwd and bwd from the realign main path, exp from the EM
     # main path (fwd launched there too: em_launches); the long-pair sites

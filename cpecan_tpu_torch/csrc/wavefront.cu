@@ -39,10 +39,10 @@
 // grid steps in VMEM on the TPU live here in shared memory (F_{k-1};
 // B_{k+1}, B_{k+2}, bridgevec_{k+1}) and registers (F_{k-2}'s operands,
 // 1/m, 1/mb, em_{k+1}). Bands wider than 4096 slots, whose carries do not
-// fit in one block's shared memory, run the wide variants
-// (wavefront_fwd_wide, and for bwd and exp wavefront_back_cluster, a
-// thread-block cluster per pair, or above its capacity
-// wavefront_back_wide; see there). The neighbour
+// fit in one block's shared memory, run the wide variants: a
+// thread-block cluster per pair (wavefront_fwd_cluster, and for bwd and
+// exp wavefront_back_cluster), or above its capacity the global-scratch
+// kernels (wavefront_fwd_wide, wavefront_back_wide); see there. The neighbour
 // shifts in {-1, 0, +1} are shared-memory reads of slot j +- 1 with zero
 // fill outside [0, W), like the Pallas _shift_l/_shift_r. The row max
 // (every 4th diagonal) and the per-diagonal dots are block reductions
@@ -144,6 +144,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <utility>
 
 namespace {
 
@@ -160,10 +161,11 @@ constexpr int kRingThreads = 480;      // its compute threads beside the produce
 constexpr size_t kSmemPerBlock = 232448;  // Hopper: 227 KB per block
 constexpr size_t kStaticSmem = 1024;      // room for the static shared arrays
 constexpr int kNormEvery = 4;
-// wavefront_back_cluster: CTAs per cluster (the portable most), and the
-// most threads per CTA with 2 (exp only) and with 4 band slots per thread
-// (so a slice holds at most 4 * kClusterThreads4 slots and the widest
-// band it takes is kClusterMax times that)
+// The cluster kernels (wavefront_fwd_cluster, wavefront_back_cluster):
+// CTAs per cluster (the portable most), and the most threads per CTA with
+// 2 (fwd and exp) and with 4 band slots per thread (so a slice holds at
+// most 4 * kClusterThreads4 slots and the widest band they take is
+// kClusterMax times that)
 constexpr int kClusterMax = 8;
 constexpr int kClusterThreads2 = 512;
 constexpr int kClusterThreads4 = 384;
@@ -322,16 +324,28 @@ __device__ __forceinline__ TotalTerms total_terms(float total) {
   return {ok / (total + (1.f - ok)), logf(total + (1.f - ok)) * ok};
 }
 
+// max(a, b) that propagates NaN (PTX max.NaN, sm_80+), unlike fmaxf,
+// which drops it. Every row max of the kernels is taken with it, from 0:
+// a row whose raw values hold a NaN has the max NaN, which `m > 0 ? m :
+// 1` maps to the scale 1 (mf / mb 0, the row's values NaN times 1), as
+// the JAX package's jnp.max and jnp.where do; a finite row's max is
+// fmaxf's, bit for bit.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 // Block-wide max; blockDim.x is a multiple of 32 and every thread of
 // the block calls it. Every thread returns the same value (the
 // per-warp partials are combined in one fixed order). `red` holds one
 // float per warp and must not be reused before the next block barrier.
 __device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float m = red[0];
-  for (int k = 1; k < (int)(blockDim.x >> 5); ++k) m = fmaxf(m, red[k]);
+  for (int k = 1; k < (int)(blockDim.x >> 5); ++k) m = max_nan(m, red[k]);
   return m;
 }
 
@@ -651,7 +665,7 @@ __global__ void __launch_bounds__(kRing ? kFwdThreads + 32 : kSlots == 16 ? kMax
       rs = 1.f;
       if (rescaled) {
         float m = red[0];
-        for (int k = 1; k < nw; ++k) m = fmaxf(m, red[k]);
+        for (int k = 1; k < nw; ++k) m = max_nan(m, red[k]);
         m = m > 0.f ? m : 1.f;
         rs = 1.f / m;
         if (tid == 0) p.mf[row - 1] = logf(m);
@@ -710,7 +724,7 @@ __global__ void __launch_bounds__(kRing ? kFwdThreads + 32 : kSlots == 16 ? kMax
         for (int s = 0; s < S; ++s) {
           wr[s * W + j] = cur[s];
           if (norm)
-            lmax = fmaxf(lmax, cur[s]);
+            lmax = max_nan(lmax, cur[s]);
           else if (!kRing)
             p.F[(row * S + s) * W + j] = cur[s];
         }
@@ -718,7 +732,7 @@ __global__ void __launch_bounds__(kRing ? kFwdThreads + 32 : kSlots == 16 ? kMax
     }
     if constexpr (kRing) fence_smem_for_copies();  // the producer stores wr
     if (norm) {
-      for (int o = 16; o > 0; o >>= 1) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      for (int o = 16; o > 0; o >>= 1) lmax = max_nan(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
       if ((tid & 31) == 0) red[tid >> 5] = lmax;
     } else if (tid == 0) {
       p.mf[row] = 0.f;
@@ -742,7 +756,7 @@ __global__ void __launch_bounds__(kRing ? kFwdThreads + 32 : kSlots == 16 ? kMax
   float r = 1.f;
   if ((k0 + R - 1) % kNormEvery == kNormEvery - 1) {
     float m = red[0];
-    for (int k = 1; k < nw; ++k) m = fmaxf(m, red[k]);
+    for (int k = 1; k < nw; ++k) m = max_nan(m, red[k]);
     m = m > 0.f ? m : 1.f;
     r = 1.f / m;
     if (tid == 0) p.mf[base + R - 1] = logf(m);
@@ -1019,7 +1033,7 @@ __global__ void __launch_bounds__(kRing ? kRingThreads + 32 : kMaxThreads)
         }
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-          if (norm) lmax = fmaxf(lmax, raw[q][s]);
+          if (norm) lmax = max_nan(lmax, raw[q][s]);
           ldot += vF[q][s] * raw[q][s];
         }
         lbr += nb(bvn, j + db, W) * emn[q] * b1s[j];
@@ -1031,7 +1045,7 @@ __global__ void __launch_bounds__(kRing ? kRingThreads + 32 : kMaxThreads)
     // in the same fixed order. The barrier also follows every read of the
     // carries for this diagonal, so they may be rotated in place below.
     for (int o = 16; o > 0; o >>= 1) {
-      if (norm) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      if (norm) lmax = max_nan(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
       lbr += __shfl_xor_sync(0xffffffffu, lbr, o);
       ldot += __shfl_xor_sync(0xffffffffu, ldot, o);
     }
@@ -1045,7 +1059,7 @@ __global__ void __launch_bounds__(kRing ? kRingThreads + 32 : kMaxThreads)
     float mbv = 0.f;
     if (norm) {
       float m = red[0][0];
-      for (int k = 1; k < nw; ++k) m = fmaxf(m, red[0][k]);
+      for (int k = 1; k < nw; ++k) m = max_nan(m, red[0][k]);
       if (!(m > 0.f) || at_end) m = 1.f;
       r = 1.f / m;
       mbv = logf(m);
@@ -1365,7 +1379,7 @@ __global__ void __launch_bounds__(kRing ? kExpMaxThreads + 32
         }
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-          if (norm) lmax = fmaxf(lmax, raw[q][s]);
+          if (norm) lmax = max_nan(lmax, raw[q][s]);
           ldot += (kLate ? gF[s * W + j] : vF[q][s]) * raw[q][s];
         }
         lbr += nb(bvn, j + db, W) * emn[q] * b1s[j];
@@ -1376,7 +1390,7 @@ __global__ void __launch_bounds__(kRing ? kExpMaxThreads + 32
     // Its barrier also follows every read of the carries for this
     // diagonal, so they may be rotated in place below.
     for (int o = 16; o > 0; o >>= 1) {
-      if (norm) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      if (norm) lmax = max_nan(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
       lbr += __shfl_xor_sync(0xffffffffu, lbr, o);
       ldot += __shfl_xor_sync(0xffffffffu, ldot, o);
     }
@@ -1390,7 +1404,7 @@ __global__ void __launch_bounds__(kRing ? kExpMaxThreads + 32
     float mbv = 0.f;
     if (norm) {
       float m = red[0][0];
-      for (int k = 1; k < nw; ++k) m = fmaxf(m, red[0][k]);
+      for (int k = 1; k < nw; ++k) m = max_nan(m, red[0][k]);
       if (!(m > 0.f) || at_end) m = 1.f;
       r = 1.f / m;
       mbv = logf(m);
@@ -1508,9 +1522,11 @@ __global__ void __launch_bounds__(kRing ? kExpMaxThreads + 32
 // thread rescales its own slots in place, and a block barrier ends the
 // diagonal. The arithmetic is that of the shared-memory variants: the
 // same rescale schedule, mf / mb exactly the applied scale, nb()'s zero
-// fill. Simple kernels that are right: their speed is not worked on.
-// wavefront_back_wide is the declared route only above the capacity of
-// wavefront_back_cluster (below), which does its work on chip.
+// fill; wavefront_fwd_wide rounds as fwd_reference does (F, bv, mf bit
+// for bit). Simple kernels that are right: their speed is not worked on.
+// Each is the declared route only above the capacity of its cluster
+// kernel (below: wavefront_fwd_cluster, wavefront_back_cluster), which
+// does its work on chip.
 
 template <int S, bool kWindow>
 __global__ void __launch_bounds__(kWideThreads) wavefront_fwd_wide(
@@ -1570,13 +1586,13 @@ __global__ void __launch_bounds__(kWideThreads) wavefront_fwd_wide(
         own2[s] = f2 ? f2[s * W + j] : 0.f;
         cur[s] = 0.f;
       }
-      Model<S>::template fwd<false>(cur, lo, mid, up, T);
+      Model<S>::template fwd<true>(cur, lo, mid, up, T);
       // bridgevec[k] = (sum_f F_{k-2}[f] * t_m[f, match]) / m_{k-1}
-      bv[o] = Model<S>::template bridge<false>(own2, T) * invm;
+      bv[o] = Model<S>::template bridge<true>(own2, T) * invm;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         out[s * W + j] = cur[s];
-        if (norm) lmax = fmaxf(lmax, cur[s]);
+        if (norm) lmax = max_nan(lmax, cur[s]);
       }
     }
 
@@ -1684,7 +1700,7 @@ __global__ void __launch_bounds__(kExp ? kExpWideThreads : kWideThreads)
       }
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        if (norm) lmax = fmaxf(lmax, raw[s]);
+        if (norm) lmax = max_nan(lmax, raw[s]);
         ldot += p.F[(row * S + s) * W + j] * raw[s];
         bn[s * W + j] = raw[s];
       }
@@ -1692,7 +1708,7 @@ __global__ void __launch_bounds__(kExp ? kExpWideThreads : kWideThreads)
     }
 
     for (int o = 16; o > 0; o >>= 1) {
-      if (norm) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      if (norm) lmax = max_nan(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
       lbr += __shfl_xor_sync(0xffffffffu, lbr, o);
       ldot += __shfl_xor_sync(0xffffffffu, ldot, o);
     }
@@ -1706,7 +1722,7 @@ __global__ void __launch_bounds__(kExp ? kExpWideThreads : kWideThreads)
     float mbv = 0.f;
     if (norm) {
       float m = red[0][0];
-      for (int k = 1; k < nw; ++k) m = fmaxf(m, red[0][k]);
+      for (int k = 1; k < nw; ++k) m = max_nan(m, red[0][k]);
       if (!(m > 0.f) || at_end) m = 1.f;
       r = 1.f / m;
       mbv = logf(m);
@@ -1922,6 +1938,19 @@ __host__ __device__ constexpr size_t cluster_smem_bytes(int S, bool exp, int C, 
          (exp ? ((size_t)S * 16 * nt + 32 + S * S + S * 16) * sizeof(float) : 0);
 }
 
+// wavefront_fwd_cluster's rows in shared memory: a slice of Wc slots
+// starts kHalo floats into its row, after its left halo slot, so that it
+// lies on the 16-byte grid for the bulk stores; its right halo follows
+// it, and the row's stride keeps the next row on the grid.
+constexpr int kHalo = 4;
+__host__ __device__ constexpr int fwd_cluster_row(int Wc) { return Wc + 2 * kHalo; }
+
+// Dynamic shared memory of wavefront_fwd_cluster: the three raw rows and
+// the row-max partials [C * nw].
+__host__ __device__ constexpr size_t fwd_cluster_smem_bytes(int S, int C, int Wc, int nt) {
+  return (3 * (size_t)S * fwd_cluster_row(Wc) + (size_t)C * (nt / 32)) * sizeof(float);
+}
+
 // The row-constant selects and bits of one diagonal (exp also the forward
 // selects and the scale adjustments), read a diagonal ahead.
 struct ClusterBits {
@@ -2098,7 +2127,7 @@ __global__ void __launch_bounds__(K == 2 ? kClusterThreads2 : kClusterThreads4)
         }
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-          if (norm) lmax = fmaxf(lmax, raw[q][s]);
+          if (norm) lmax = max_nan(lmax, raw[q][s]);
           ldot += vF[q][s] * raw[q][s];
           rows[(bk0 * S + s) * Wc + l] = raw[q][s];
         }
@@ -2109,7 +2138,7 @@ __global__ void __launch_bounds__(K == 2 ? kClusterThreads2 : kClusterThreads4)
     // the diagonal's partials: per warp, into slot (rank, warp) of every
     // CTA's array of this parity
     for (int o = 16; o > 0; o >>= 1) {
-      if (norm) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      if (norm) lmax = max_nan(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
       lbr += __shfl_xor_sync(0xffffffffu, lbr, o);
       ldot += __shfl_xor_sync(0xffffffffu, ldot, o);
     }
@@ -2165,13 +2194,13 @@ __global__ void __launch_bounds__(K == 2 ? kClusterThreads2 : kClusterThreads4)
         for (int u = 0; u < 4; ++u) {
           if (k + u < C * nw) {
             const float4 v = pp[k + u];
-            mq[u] = fmaxf(mq[u], v.x);
+            mq[u] = max_nan(mq[u], v.x);
             bq[u] += v.y;
             dq[u] += v.z;
           }
         }
       }
-      m = fmaxf(fmaxf(mq[0], mq[1]), fmaxf(mq[2], mq[3]));
+      m = max_nan(max_nan(mq[0], mq[1]), max_nan(mq[2], mq[3]));
       bridge = (bq[0] + bq[1]) + (bq[2] + bq[3]);
       dot = (dq[0] + dq[1]) + (dq[2] + dq[3]);
     }
@@ -2288,6 +2317,254 @@ __global__ void __launch_bounds__(K == 2 ? kClusterThreads2 : kClusterThreads4)
     }
     cluster_sync();  // no CTA leaves while rank 0 reads its counts
   }
+}
+
+// wavefront_fwd_cluster: wavefront_fwd_wide's work (the forward
+// wavefront, batch and window) for bands wider than kMaxWidth, on a
+// thread-block cluster of C CTAs per pair that keeps F_{k-1} and F_{k-2}
+// on chip. The global-scratch kernel ran one SM per pair and read every
+// neighbour of F back from device memory, one L2 round per slot-loop
+// iteration (6.8 us per diagonal at W = 4352, 11.9 at 8200); it also
+// rescaled a norm row in a second pass behind a second barrier. Here:
+//   - CTA r of a pair's cluster owns the slots [r * Wc, (r + 1) * Wc), K
+//     (2 or 4) of them per thread (j = r * Wc + tid + q * nt). Its
+//     shared memory holds three rows of raw F, the rows of diagonals k,
+//     k-1 and k-2 by k mod 3, each (S, Wc) with one halo slot on either
+//     side of the slice; a window's carry in enters as rows -1 and -2
+//     (scaled already: read with scale 1), the batch path's F0 as row 0
+//     above a zero row -1.
+//   - The neighbour shifts are in {-1, 0, +1}, so a slice needs one slot
+//     past each edge. The CTA that owns that slot pushes it: the thread
+//     of a slice's first (last) slot stores its new row's value into the
+//     left (right) peer's halo slot through distributed shared memory
+//     (mapa) as it writes its own, and the barrier releases the store.
+//     No read waits on a peer's memory. A halo no peer fills, and the
+//     slots of a slice past W, stay zero, as nb() fills.
+//   - Rows are stored raw; every reader multiplies by the row's scale
+//     (raw * r, the fp32 product fwd_reference stores as F), so no second
+//     pass and no barrier separate a rescale from the next diagonal.
+//     Only norm rows reduce (the row max): each warp's partial goes into
+//     slot (rank, warp) of every CTA's partial array, and after the
+//     barrier every warp of every CTA takes the max of the same C * nw
+//     partials (a max is exact in any order), so all CTAs hold the same
+//     m and r bit for bit; rank 0 writes mf. One array serves: the next
+//     norm row writes it kNormEvery diagonals later, after every reader
+//     has passed a later barrier.
+//   - One cluster barrier per diagonal (arrive.release, wait.acquire) is
+//     the only barrier. A row's buffer, halos included, is written again
+//     three diagonals on, after every reader of it has arrived at a later
+//     barrier.
+//   - Every device-memory read of a diagonal (ex, ey, em of the CTA's
+//     slots, the a / b1 / b0 bytes) is issued a diagonal ahead, between
+//     arrive and wait, and none is used before the wait.
+//   - F is the output: a row that needs no rescale is final raw, and
+//     thread 0 of each CTA stores its slice of it after the barrier with
+//     one bulk copy (TMA) per state from shared memory (where W % 4 == 0
+//     and F lies on the 16-byte grid; per-thread stores otherwise), and
+//     waits for the copies to have read the row before the next barrier.
+//     A norm row is stored as raw * r by its threads on the next
+//     diagonal, once r is known; bv by every thread for its own slots.
+// The arithmetic is fwd_reference's operation for operation (fwd<true>,
+// bridge<true>, the same scale products), so F, bv, mf and the carry out
+// equal the plain version's, and the global-scratch kernel's, bit for bit.
+template <int S, int K, bool kWindow>
+__global__ void __launch_bounds__(K == 2 ? kClusterThreads2 : kClusterThreads4)
+    wavefront_fwd_cluster(const Trans tr, const FwdArgs p, int R, int W, int C, int Wc,
+                          int bulk) {
+  extern __shared__ __align__(16) float cluster_smem[];
+  const int rank = blockIdx.x % C;  // the cluster's CTAs are consecutive along x
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nt >> 5;
+  const int base = rank * Wc;
+  const int n = W - base >= Wc ? Wc : W - base > 0 ? W - base : 0;  // its slots in [0, W)
+  const int P = fwd_cluster_row(Wc);
+  const float* T = tr.v;
+  const size_t SW = (size_t)S * W;
+  const int i0 = kWindow ? 0 : 1;  // the first computed row
+  const int k0 = kWindow ? p.k0 : 0;
+  const size_t pr = (size_t)b * R;  // this pair's row 0
+  float* rows = cluster_smem;       // (3, S, P): local slot l at kHalo + l
+  float* part = rows + 3 * S * P;
+  // the peers' rows: this slice's first slot is the left peer's right
+  // halo, its last the right peer's left halo
+  float* left = rank > 0 ? cluster_map(rows, rank - 1) + kHalo + Wc : nullptr;
+  float* right = rank + 1 < C ? cluster_map(rows, rank + 1) + kHalo - 1 : nullptr;
+  // lane l < C stores its warp's partial max into CTA l's array
+  float* peer_part = lane < C ? cluster_map(part, lane) : nullptr;
+  auto buf = [](int i) { return (i + 3) % 3; };  // row i's buffer, i >= -2
+  // a new value of this CTA's slot l in row buffer bk, state s, with its
+  // push into a peer's halo
+  auto put = [&](int bk, int s, int l, float v) {
+    const int o = (bk * S + s) * P;
+    rows[o + kHalo + l] = v;
+    if (l == 0 && left) left[o] = v;
+    if (l == Wc - 1 && right) right[o] = v;
+  };
+
+  for (int k = tid; k < 3 * S * P; k += nt) rows[k] = 0.f;
+  cluster_sync();  // every CTA of the cluster runs and has zeroed its rows
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int l = tid + q * nt;
+    const int j = base + l;
+    if (l < n) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const size_t g = (size_t)b * SW + (size_t)s * W + j;
+        if constexpr (kWindow) {
+          put(buf(-1), s, l, p.ci1[g]);
+          put(buf(-2), s, l, p.ci2[g]);
+        } else {
+          const float v = p.F0[g];
+          put(buf(0), s, l, v);
+          p.F[(pr * S + s) * W + j] = v;
+        }
+      }
+      if (!kWindow) p.bv[pr * W + j] = 0.f;
+    }
+  }
+  if (!kWindow && rank == 0 && tid == 0) p.mf[pr] = 0.f;
+
+  // the next diagonal's streams and row-constant shift bytes
+  float nx[K], ny[K], nm[K];
+  int8_t na = 0, nb1 = 0, nb0 = 0;
+  auto next_row = [&](size_t row) {
+    na = p.a[row], nb1 = p.b1[row], nb0 = p.b0[row];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int l = tid + q * nt;
+      const size_t o = row * W + base + l;
+      nx[q] = l < n ? p.ex[o] : 0.f;
+      ny[q] = l < n ? p.ey[o] : 0.f;
+      nm[q] = l < n ? p.em[o] : 0.f;
+    }
+  };
+  if (i0 < R) next_row(pr + i0);
+  float invm = kWindow ? p.cim[b] : 1.f;  // 1/m_{k-1}
+  float r1 = 1.f, r2 = 1.f;               // the scales of rows k-1 and k-2
+  bool pending = false;                    // row k-1 awaits its scale
+  // the max of a norm row's partials (every thread of the cluster calls
+  // it after the barrier that follows the row); 1 for a row max <= 0 or
+  // NaN, and rank 0 writes mf
+  auto row_scale = [&](size_t row) {
+    float m = 0.f;
+    for (int k = lane; k < C * nw; k += 32) m = max_nan(m, part[k]);
+    for (int o = 16; o > 0; o >>= 1) m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
+    m = m > 0.f ? m : 1.f;
+    if (rank == 0 && tid == 0) p.mf[row] = logf(m);
+    return 1.f / m;
+  };
+  cluster_sync();  // every CTA has its first rows and halos
+
+  for (int i = i0; i < R; ++i) {
+    const size_t row = pr + i;
+    const bool norm = (k0 + i) % kNormEvery == kNormEvery - 1;
+    const bool sa = na != 0;
+    const int dm = mid_shift(nb1, nb0);
+    float vx[K], vy[K], vm[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) vx[q] = nx[q], vy[q] = ny[q], vm[q] = nm[q];
+    const bool rescaled = pending;  // row k-1 is a norm row: store it scaled
+    if (i > i0) {
+      r2 = r1;
+      r1 = pending ? row_scale(row - 1) : 1.f;
+      invm = r1;
+    }
+    const int bk0 = buf(i), bk1 = buf(i - 1), bk2 = buf(i - 2);
+
+    float lmax = 0.f;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int l = tid + q * nt;
+      const int j = base + l;
+      if (l < n) {
+        // F_{k-1} at j-1, j, j+1 and F_{k-2} at j + dm and j, raw, from
+        // the slice and its halos
+        const float* p1 = rows + bk1 * S * P + kHalo + l;
+        const float* p2 = rows + bk2 * S * P + kHalo + l;
+        float fl[S], fc[S], fr[S], m2[S], own2[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          fl[s] = p1[s * P - 1] * r1;
+          fc[s] = p1[s * P] * r1;
+          fr[s] = p1[s * P + 1] * r1;
+          m2[s] = p2[s * P + dm] * r2;
+          own2[s] = p2[s * P] * r2;
+          if (rescaled) p.F[((row - 1) * S + s) * W + j] = fc[s];
+        }
+        const float exj = vx[q];
+        const float eyj = vy[q];
+        const float emi = vm[q] * invm;
+        float lo[S], mi[S], up[S], cur[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          lo[s] = (sa ? fc[s] : fl[s]) * exj;
+          up[s] = (sa ? fr[s] : fc[s]) * eyj;
+          mi[s] = m2[s] * emi;
+          cur[s] = 0.f;
+        }
+        Model<S>::template fwd<true>(cur, lo, mi, up, T);
+        // bridgevec[k] = (sum_f F_{k-2}[f] * t_m[f, match]) / m_{k-1}
+        p.bv[row * W + j] = Model<S>::template bridge<true>(own2, T) * invm;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          put(bk0, s, l, cur[s]);
+          if (norm)
+            lmax = max_nan(lmax, cur[s]);
+          else if (!bulk)
+            p.F[(row * S + s) * W + j] = cur[s];
+        }
+      }
+    }
+    if (norm) {
+      for (int o = 16; o > 0; o >>= 1) lmax = max_nan(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      if (lane < C) peer_part[rank * nw + warp] = lmax;
+    } else if (rank == 0 && tid == 0) {
+      p.mf[row] = 0.f;
+    }
+    if (bulk) {
+      if (!norm) fence_smem_for_copies();  // thread 0 stores the row by TMA
+      if (tid == 0) bulk_wait(false);      // row k-1's copies have read it
+    }
+    cluster_arrive();
+    if (i + 1 < R) next_row(row + 1);
+    cluster_wait();
+    if (bulk && !norm && tid == 0 && n > 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        bulk_store(p.F + (row * S + s) * W + base, rows + (bk0 * S + s) * P + kHalo,
+                   (uint32_t)(n * sizeof(float)));
+    }
+    pending = norm;
+  }
+  if (bulk && tid == 0) bulk_wait(true);
+
+  // The last row's rescale and the carry out (the loop's final barrier
+  // precedes): the rows R-1 and R-2, the thread's own slots.
+  if (R - 1 < i0) return;
+  const float r = pending ? row_scale(pr + R - 1) : 1.f;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int l = tid + q * nt;
+    const int j = base + l;
+    if (l < n) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float f1 = rows[(buf(R - 1) * S + s) * P + kHalo + l] * r;
+        if (pending) p.F[((pr + R - 1) * S + s) * W + j] = f1;
+        if (kWindow && p.co1 != nullptr) {
+          const size_t g = (size_t)b * SW + (size_t)s * W + j;
+          p.co1[g] = f1;
+          p.co2[g] = rows[(buf(R - 2) * S + s) * P + kHalo + l] * r1;
+        }
+      }
+    }
+  }
+  if (kWindow && p.co1 != nullptr && rank == 0 && tid == 0) p.com[b] = r;
 }
 
 Trans load_trans(int S, const float* t_host) {
@@ -2459,77 +2736,52 @@ int launch_exp(const float* t_host, const BwdArgs& p, int B, int R, int W, cudaS
   return (int)cudaGetLastError();
 }
 
-template <int S>
-int launch_fwd_wide(const float* t_host, const float* ex, const float* ey, const float* em,
-                    const int8_t* a, const int8_t* b1, const int8_t* b0, const float* F0,
-                    const float* ci1, const float* ci2, const float* cim, float* F, float* bv,
-                    float* mf, float* co1, float* co2, float* com, int B, int R, int W, int k0,
-                    cudaStream_t stream) {
-  auto kernel = ci1 != nullptr ? wavefront_fwd_wide<S, true> : wavefront_fwd_wide<S, false>;
-  const int nt = std::min((W + 31) / 32 * 32, kWideThreads);
-  kernel<<<B, nt, 0, stream>>>(load_trans(S, t_host), ex, ey, em, a, b1, b0, F0, ci1, ci2, cim,
-                               F, bv, mf, co1, co2, com, R, W, k0);
-  return (int)cudaGetLastError();
-}
-
-// The cluster size wavefront_back_cluster's plan uses, at most
-// kClusterMax; 0 turns the cluster variant off (cpecan_wavefront_set_
-// cluster_limit: for measurements and tests).
+// The cluster size the cluster kernels' plans use, at most kClusterMax;
+// 0 turns the cluster variants off (cpecan_wavefront_set_cluster_limit:
+// for measurements and tests).
 int g_cluster_limit = kClusterMax;
 
-// wavefront_back_wide's launch at (S, W): the cluster variant
-// (wavefront_back_cluster, cluster > 0) where a cluster of
-// g_cluster_limit CTAs holds the band: slices of Wc slots (W / C rounded
-// up to 32); exp 2 slots per thread where that takes at most
-// kClusterThreads2 threads and fits shared memory (the counts after the
-// reduction are its longest serial work: half of it a thread), else 4,
-// and bwd 4, on at most kClusterThreads4 (bwd ran slower on 2: more warps
-// to reduce and meet, the same chain per diagonal); else the
-// global-scratch kernel (cluster 0), the declared route above the
-// cluster's capacity (W > 12288 at C = 8).
-struct BackWidePlan {
+// A wide kernel's launch at (S, W): cluster size (0: the global-scratch
+// kernel), band slots per thread, slice (band slots per CTA), threads per
+// CTA and dynamic shared memory.
+struct ClusterPlan {
   int cluster, slots, slice, threads;
   size_t smem;
 };
 
-BackWidePlan back_wide_plan(int S, int W, bool exp) {
+// The threads of a slice of Wc slots at K slots a thread (whole warps),
+// and the most a cluster kernel takes at K.
+int cluster_threads(int Wc, int K) { return ((Wc + K - 1) / K + 31) / 32 * 32; }
+int cluster_thread_cap(int K) { return K == 2 ? kClusterThreads2 : kClusterThreads4; }
+
+// A cluster of C CTAs holds a band of W slots in slices of Wc: W / C
+// rounded up to 32.
+int cluster_slice(int W, int C) { return ((W + C - 1) / C + 31) / 32 * 32; }
+
+// wavefront_fwd_wide's launch at (S, W): the cluster variant
+// (wavefront_fwd_cluster, cluster > 0) where a cluster of g_cluster_limit
+// CTAs holds the band, at 2 slots per thread where that takes at most
+// kClusterThreads2 threads, else 4 on at most kClusterThreads4 (on the
+// card 2 slots ran faster than 4 and 8 wherever they fit, and 8 CTAs
+// faster than 4); else the global-scratch
+// kernel (cluster 0), the declared route above the cluster's capacity (W
+// > 12288 at C = 8, as wavefront_back_cluster's).
+ClusterPlan fwd_wide_plan(int S, int W) {
   const int C = g_cluster_limit;
   if (C < 2) return {0, 0, 0, 0, 0};
-  const int Wc = ((W + C - 1) / C + 31) / 32 * 32;
+  const int Wc = cluster_slice(W, C);
   for (int K : {2, 4}) {
-    if (K == 2 && !exp) continue;
-    const int nt = ((Wc + K - 1) / K + 31) / 32 * 32;
-    const size_t smem = cluster_smem_bytes(S, exp, C, Wc, nt);
-    if (nt <= (K == 2 ? kClusterThreads2 : kClusterThreads4) && smem <= kSmemPerBlock)
-      return {C, K, Wc, nt, smem};
+    const int nt = cluster_threads(Wc, K);
+    const size_t smem = fwd_cluster_smem_bytes(S, C, Wc, nt);
+    if (nt <= cluster_thread_cap(K) && smem <= kSmemPerBlock) return {C, K, Wc, nt, smem};
   }
   return {0, 0, 0, 0, 0};
 }
 
-using ClusterKernel = void (*)(Trans, BwdArgs, int, int, int, int);
-
-template <int S, int K, bool kExp>
-ClusterKernel cluster_kernel(bool window) {
-  return window ? wavefront_back_cluster<S, K, kExp, true> : wavefront_back_cluster<S, K, kExp, false>;
-}
-
-template <int S, bool kExp>
-int launch_back_wide(const float* t_host, const BwdArgs& p, int B, int R, int W,
-                     cudaStream_t stream) {
-  const bool window = p.ci_b1 != nullptr;
-  const BackWidePlan pl = back_wide_plan(S, W, kExp);
-  if (pl.cluster == 0) {
-    auto kernel = window ? wavefront_back_wide<S, kExp, true> : wavefront_back_wide<S, kExp, false>;
-    const int nt = std::min((W + 31) / 32 * 32, kExp ? kExpWideThreads : kWideThreads);
-    kernel<<<B, nt, 0, stream>>>(load_trans(S, t_host), p, R, W);
-    return (int)cudaGetLastError();
-  }
-  // the cluster variant; a launch it cannot make is an error, never the
-  // global-scratch kernel
-  ClusterKernel kernel = cluster_kernel<S, 4, kExp>(window);
-  if constexpr (kExp) {
-    if (pl.slots == 2) kernel = cluster_kernel<S, 2, kExp>(window);
-  }
+// A cluster kernel's launch: B clusters of pl.cluster CTAs along x.
+template <class... P, class... A>
+int launch_cluster(void (*kernel)(P...), const ClusterPlan& pl, int B, cudaStream_t stream,
+                   A&&... args) {
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return (int)e;
@@ -2545,9 +2797,90 @@ int launch_back_wide(const float* t_host, const BwdArgs& p, int B, int R, int W,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, load_trans(S, t_host), p, R, W, pl.cluster, pl.slice);
+  e = cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+using FwdClusterKernel = void (*)(Trans, FwdArgs, int, int, int, int, int);
+
+template <int S, int K>
+FwdClusterKernel fwd_cluster_kernel(bool window) {
+  return window ? wavefront_fwd_cluster<S, K, true> : wavefront_fwd_cluster<S, K, false>;
+}
+
+template <int S>
+int launch_fwd_wide(const float* t_host, const FwdArgs& p, int B, int R, int W,
+                    cudaStream_t stream) {
+  const bool window = p.ci1 != nullptr;
+  const ClusterPlan pl = fwd_wide_plan(S, W);
+  if (pl.cluster == 0) {
+    auto kernel = window ? wavefront_fwd_wide<S, true> : wavefront_fwd_wide<S, false>;
+    const int nt = std::min((W + 31) / 32 * 32, kWideThreads);
+    kernel<<<B, nt, 0, stream>>>(load_trans(S, t_host), p.ex, p.ey, p.em, p.a, p.b1, p.b0,
+                                 p.F0, p.ci1, p.ci2, p.cim, p.F, p.bv, p.mf, p.co1, p.co2,
+                                 p.com, R, W, p.k0);
+    return (int)cudaGetLastError();
+  }
+  // the cluster variant; a launch it cannot make is an error, never the
+  // global-scratch kernel. Its rows leave by bulk copies where each
+  // slice's segment of F lies on the 16-byte grid.
+  const FwdClusterKernel kernel =
+      pl.slots == 2 ? fwd_cluster_kernel<S, 2>(window) : fwd_cluster_kernel<S, 4>(window);
+  const int bulk = W % 4 == 0 && reinterpret_cast<uintptr_t>(p.F) % 16 == 0;
+  return launch_cluster(kernel, pl, B, stream, load_trans(S, t_host), p, R, W, pl.cluster,
+                        pl.slice, bulk);
+}
+
+// wavefront_back_wide's launch at (S, W): the cluster variant
+// (wavefront_back_cluster, cluster > 0) where a cluster of
+// g_cluster_limit CTAs holds the band: slices of Wc slots; exp 2 slots
+// per thread where that takes at most kClusterThreads2 threads and fits
+// shared memory (the counts after the reduction are its longest serial
+// work: half of it a thread), else 4, and bwd 4, on at most
+// kClusterThreads4 (bwd ran slower on 2: more warps to reduce and meet,
+// the same chain per diagonal); else the global-scratch kernel (cluster
+// 0), the declared route above the cluster's capacity (W > 12288 at C =
+// 8).
+ClusterPlan back_wide_plan(int S, int W, bool exp) {
+  const int C = g_cluster_limit;
+  if (C < 2) return {0, 0, 0, 0, 0};
+  const int Wc = cluster_slice(W, C);
+  for (int K : {2, 4}) {
+    if (K == 2 && !exp) continue;
+    const int nt = cluster_threads(Wc, K);
+    const size_t smem = cluster_smem_bytes(S, exp, C, Wc, nt);
+    if (nt <= cluster_thread_cap(K) && smem <= kSmemPerBlock) return {C, K, Wc, nt, smem};
+  }
+  return {0, 0, 0, 0, 0};
+}
+
+using ClusterKernel = void (*)(Trans, BwdArgs, int, int, int, int);
+
+template <int S, int K, bool kExp>
+ClusterKernel cluster_kernel(bool window) {
+  return window ? wavefront_back_cluster<S, K, kExp, true> : wavefront_back_cluster<S, K, kExp, false>;
+}
+
+template <int S, bool kExp>
+int launch_back_wide(const float* t_host, const BwdArgs& p, int B, int R, int W,
+                     cudaStream_t stream) {
+  const bool window = p.ci_b1 != nullptr;
+  const ClusterPlan pl = back_wide_plan(S, W, kExp);
+  if (pl.cluster == 0) {
+    auto kernel = window ? wavefront_back_wide<S, kExp, true> : wavefront_back_wide<S, kExp, false>;
+    const int nt = std::min((W + 31) / 32 * 32, kExp ? kExpWideThreads : kWideThreads);
+    kernel<<<B, nt, 0, stream>>>(load_trans(S, t_host), p, R, W);
+    return (int)cudaGetLastError();
+  }
+  // the cluster variant; a launch it cannot make is an error, never the
+  // global-scratch kernel
+  ClusterKernel kernel = cluster_kernel<S, 4, kExp>(window);
+  if constexpr (kExp) {
+    if (pl.slots == 2) kernel = cluster_kernel<S, 2, kExp>(window);
+  }
+  return launch_cluster(kernel, pl, B, stream, load_trans(S, t_host), p, R, W, pl.cluster,
+                        pl.slice);
 }
 
 // The shared-memory variants take W <= kMaxWidth, the wide ones any W.
@@ -2578,12 +2911,10 @@ int fwd_entry(bool wide, int S, const float* t_host, const float* ex, const floa
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wide)
-    return (S == 5 ? launch_fwd_wide<5> : launch_fwd_wide<3>)(
-        t_host, ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2, com, B, R, W, k0,
-        st);
   const FwdArgs p = {ex, ey, em, a, b1, b0, F0, ci1, ci2, cim, F, bv, mf, co1, co2, com, k0};
-  return (S == 5 ? launch_fwd<5> : launch_fwd<3>)(t_host, p, B, R, W, st);
+  auto launch = wide ? (S == 5 ? launch_fwd_wide<5> : launch_fwd_wide<3>)
+                     : (S == 5 ? launch_fwd<5> : launch_fwd<3>);
+  return launch(t_host, p, B, R, W, st);
 }
 
 int bwd_entry(bool wide, int S, const float* t_host, const float* efx, const float* efy,
@@ -2764,19 +3095,27 @@ int cpecan_wavefront_exp_plan(int S, int W, int aligned, int* out) {
   return 0;
 }
 
-// wavefront_back_wide's launch at (S, W) for bwd (exp == 0) or exp: out
-// = {cluster size (0: the global-scratch kernel), band slots per thread,
-// slice, threads per CTA, dynamic shared memory bytes}.
+// The wide kernels' launch at (S, W), bwd's (exp == 0) or exp's here and
+// fwd's below: out = {cluster size (0: the global-scratch kernel), band
+// slots per thread, slice, threads per CTA, dynamic shared memory bytes}.
 int cpecan_wavefront_back_wide_plan(int S, int W, int exp, int* out) {
   if (bad_shape(S, 1, 1, W, true)) return (int)cudaErrorInvalidValue;
-  const BackWidePlan pl = back_wide_plan(S, W, exp != 0);
+  const ClusterPlan pl = back_wide_plan(S, W, exp != 0);
   out[0] = pl.cluster, out[1] = pl.slots, out[2] = pl.slice, out[3] = pl.threads;
   out[4] = (int)pl.smem;
   return 0;
 }
 
-// Sets the cluster size of wavefront_back_wide's cluster variant (2 ..
-// kClusterMax; 0: the global-scratch kernel at every width) and returns
+int cpecan_wavefront_fwd_wide_plan(int S, int W, int* out) {
+  if (bad_shape(S, 1, 1, W, true)) return (int)cudaErrorInvalidValue;
+  const ClusterPlan pl = fwd_wide_plan(S, W);
+  out[0] = pl.cluster, out[1] = pl.slots, out[2] = pl.slice, out[3] = pl.threads;
+  out[4] = (int)pl.smem;
+  return 0;
+}
+
+// Sets the cluster size of the three wide kernels' cluster variants (2 ..
+// kClusterMax; 0: the global-scratch kernels at every width) and returns
 // the one before, or -1 for a size it cannot take.
 int cpecan_wavefront_set_cluster_limit(int cluster) {
   if (cluster != 0 && (cluster < 2 || cluster > kClusterMax)) return -1;

@@ -43,6 +43,7 @@ _SIGNATURES = {  # (S, pointers..., B, R, W, k0, stream)
     "cpecan_wavefront_exp_plan": [_I, _I, _I, _P],
     # (S, W, exp, int[5] out): the wide backward kernels' cluster plan
     "cpecan_wavefront_back_wide_plan": [_I, _I, _I, _P],
+    "cpecan_wavefront_fwd_wide_plan": [_I, _I, _P],  # (S, W, int[5] out)
     "cpecan_wavefront_set_cluster_limit": [_I],
 }
 

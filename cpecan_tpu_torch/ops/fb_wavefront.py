@@ -65,9 +65,10 @@ _PM_BRIDGE = 16  # 1 <= k < L (broadcast over slots)
 
 # Widest band of the kernels' shared-memory variants (fwd/bwd 1024 threads
 # x 4 slots per thread, exp 512 x 8); wider bands run the wide variants:
-# fwd's carries live in device memory, bwd and exp run on a thread-block
-# cluster that keeps B on chip up to W = 12288 and above it on a
-# (B, 3, S, W) fp32 scratch the wrapper passes (``back_wide_plan``).
+# a thread-block cluster per pair that keeps F (fwd) or B (bwd, exp) on
+# chip up to W = 12288 (``fwd_wide_plan``, ``back_wide_plan``), and above
+# it the global-scratch kernels (fwd's carries in its own F output, bwd's
+# and exp's in a (B, 3, S, W) fp32 scratch the wrapper passes).
 MAX_KERNEL_WIDTH = 4096
 # Widest band whose per-thread emission accumulators fit exp's shared
 # memory (256 threads x 8 slots); wider launches, and every launch of the
@@ -88,11 +89,12 @@ KERNEL_NZ = _kernels.kernel_structures()
 # serve all sites; each wrapper adds one to the count its caller names
 # where it launches a kernel, and nowhere else, and one more to wide_fwd,
 # wide_bwd or wide_exp where that kernel is a wide variant, and of those
-# bwd and exp one more to cluster_bwd or cluster_exp where the launch plan
-# (``back_wide_plan``) ran the cluster variant.
+# one more to cluster_fwd, cluster_bwd or cluster_exp where the launch
+# plan (``fwd_wide_plan``, ``back_wide_plan``) ran the cluster variant.
 LAUNCHES = {"fwd": 0, "bwd": 0, "exp": 0, "seg_fwd": 0, "seg_bwd": 0,
             "seg_exp": 0, "par_fwd": 0, "par_bwd": 0, "wide_fwd": 0,
-            "wide_bwd": 0, "wide_exp": 0, "cluster_bwd": 0, "cluster_exp": 0}
+            "wide_bwd": 0, "wide_exp": 0, "cluster_fwd": 0, "cluster_bwd": 0,
+            "cluster_exp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -447,9 +449,10 @@ def _bwd_sweep(t, efx, efy, efm, em, F, bv, abw, c1, c0, bm1, bm0, pm,
 
         if _is_norm_row(k0 + ii):
             m = torch.stack(raw, dim=1).amax(dim=(1, 2))[:, None]
-            # m := m where (m > 0 and not at_end) else 1
-            good = (m > 0).to(torch.float32) * (1.0 - ae_col)
-            m = m * good + (1.0 - good)
+            # m := m where (m > 0 and not at_end) else 1, as the JAX
+            # package selects it: a NaN row max (amax propagates NaN)
+            # gives the scale 1 and mb 0
+            m = torch.where((m > 0) & ~at_end[:, :1], m, torch.ones_like(m))
             r = 1.0 / m
             B_new = [x * r for x in raw]
             mb[:, ii] = torch.log(m[:, 0])
@@ -695,11 +698,13 @@ def _empty_like_carry(carry):
 
 def fwd(t, ex, ey, em, a, b1, b0, F0, nz, carry=None, k0=0, site="fwd"):
     """Forward wavefront: ``fwd_reference`` for CPU tensors, the CUDA
-    kernel ``wavefront_fwd`` (``wavefront_fwd_wide`` above
-    MAX_KERNEL_WIDTH) for CUDA tensors. Same contract as
-    ``fwd_reference`` (a window of a long pair passes ``carry`` and its
-    first row's diagonal ``k0``); ``t`` may live on the host (no device
-    sync). ``site`` names the launch count the call adds to."""
+    kernel ``wavefront_fwd`` (above MAX_KERNEL_WIDTH the entry point of
+    ``wavefront_fwd_wide``, whose plan runs the cluster kernel
+    ``wavefront_fwd_cluster`` where it holds the band) for CUDA tensors.
+    Same contract as ``fwd_reference`` (a window of a long pair passes
+    ``carry`` and its first row's diagonal ``k0``); ``t`` may live on the
+    host (no device sync). ``site`` names the launch count the call adds
+    to."""
     B, R, W = ex.shape
     entry = kernel_route("fwd", ex.device, W)
     if entry is None:
@@ -722,7 +727,7 @@ def fwd(t, ex, ey, em, a, b1, b0, F0, nz, carry=None, k0=0, site="fwd"):
             _ptr(ex), _ptr(ey), _ptr(em), _ptr(a), _ptr(b1), _ptr(b0),
             _ptr(F0) if carry is None else _NULL, *_carry_ptrs(carry, 3),
             _ptr(F), _ptr(bv), _ptr(mf), *_carry_ptrs(co, 3), B, R, W, k0)
-    _count(site, "fwd", entry)
+    _count(site, "fwd", entry, S, W)
     return (F, bv, mf) if carry is None else (F, bv, mf, co)
 
 
@@ -779,11 +784,13 @@ def _wide_scratch(entry: str, B: int, S: int, W: int, device) -> list:
     return [torch.empty(B, 3, S, W, dtype=torch.float32, device=device)]
 
 
-def _count(site: str, kernel: str, entry: str, S: int = 0, W: int = 0) -> None:
+def _count(site: str, kernel: str, entry: str, S: int, W: int) -> None:
     LAUNCHES[site] += 1
     if entry.endswith("_wide"):
         LAUNCHES[f"wide_{kernel}"] += 1
-        if kernel != "fwd" and back_wide_plan(S, W, kernel == "exp")["cluster"]:
+        plan = (fwd_wide_plan(S, W) if kernel == "fwd"
+                else back_wide_plan(S, W, kernel == "exp"))
+        if plan["cluster"]:
             LAUNCHES[f"cluster_{kernel}"] += 1
 
 
@@ -822,6 +829,15 @@ def exp_plan(S: int, W: int, aligned: bool = True) -> dict:
     return _plan("exp", S, W, aligned)
 
 
+def _wide_plan(name: str, S: int, W: int, *extra) -> dict:
+    out = (ctypes.c_int * 5)()
+    err = getattr(_kernels.load(), f"cpecan_wavefront_{name}")(
+        S, W, *extra, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise ValueError(f"{name}: no launch for S={S}, W={W}")
+    return dict(zip(("cluster", "slots", "slice", "threads", "smem"), out))
+
+
 def back_wide_plan(S: int, W: int, exp: bool = False) -> dict:
     """The launch ``wavefront_back_wide``'s entry points (bwd, or exp) take
     at (S, W) > MAX_KERNEL_WIDTH: cluster (CTAs per pair in the cluster
@@ -829,18 +845,22 @@ def back_wide_plan(S: int, W: int, exp: bool = False) -> dict:
     slots (band slots per thread), slice (band slots per CTA), threads
     per CTA and dynamic shared memory in bytes. Builds the kernel library
     on first use."""
-    out = (ctypes.c_int * 5)()
-    err = _kernels.load().cpecan_wavefront_back_wide_plan(
-        S, W, int(exp), ctypes.cast(out, ctypes.c_void_p))
-    if err != 0:
-        raise ValueError(f"back_wide_plan: no launch for S={S}, W={W}")
-    return dict(zip(("cluster", "slots", "slice", "threads", "smem"), out))
+    return _wide_plan("back_wide_plan", S, W, int(exp))
+
+
+def fwd_wide_plan(S: int, W: int) -> dict:
+    """``back_wide_plan``'s counterpart for ``wavefront_fwd_wide``'s entry
+    point: cluster (CTAs per pair in ``wavefront_fwd_cluster``; 0: the
+    global-scratch kernel ``wavefront_fwd_wide``), slots, slice, threads
+    and shared memory."""
+    return _wide_plan("fwd_wide_plan", S, W)
 
 
 def set_cluster_limit(cluster: int) -> int:
-    """Sets the cluster size that ``back_wide_plan`` uses (2..8, default 8;
-    0 runs the global-scratch kernel at every width) and returns the one
-    before: for measurements and tests of the two variants."""
+    """Sets the cluster size that ``fwd_wide_plan`` and ``back_wide_plan``
+    use (2..8, default 8; 0 runs the global-scratch kernels at every
+    width) and returns the one before: for measurements and tests of the
+    two variants."""
     before = _kernels.load().cpecan_wavefront_set_cluster_limit(cluster)
     if before < 0:
         raise ValueError(f"cluster size {cluster} is not 0 or 2..8")

@@ -810,36 +810,52 @@ def _cluster_limit(cluster):
 @pytest.mark.parametrize("kernel", ["fwd", "bwd", "exp"])
 @pytest.mark.parametrize("sm_factory", [state_machine5, state_machine3])
 def test_wide_variants_on_card(cuda_device, sm_factory, kernel, W, window):
-    """Bands wider than MAX_KERNEL_WIDTH run the wide variants (carries in
-    device memory; bwd and exp on a thread-block cluster, which the plan
-    query shows): against the plain versions on the same card tensors,
-    as a batch and as a window (carries in and out; exp's F halo), at a
-    width on the 16-byte grid and one off it."""
+    """Bands wider than MAX_KERNEL_WIDTH run the wide variants (a
+    thread-block cluster of 8 CTAs per pair, which the plan query shows):
+    against the plain versions on the same card tensors, as a batch and
+    as a window (carries in and out; exp's F halo), at a width on the
+    16-byte grid and one off it; fwd bit for bit."""
     hmm = PairHMM.from_state_machine(sm_factory())
     args, kw = _on(cuda_device, *_wide_inputs(kernel, hmm, W, window))
     assert fb_wavefront.kernel_route(kernel, cuda_device, W).endswith("_wide")
-    if kernel != "fwd":
-        plan = fb_wavefront.back_wide_plan(hmm.state_number, W, kernel == "exp")
-        assert plan["cluster"] == 8, plan
+    S = hmm.state_number
+    plan = (fb_wavefront.fwd_wide_plan(S, W) if kernel == "fwd"
+            else fb_wavefront.back_wide_plan(S, W, kernel == "exp"))
+    assert plan["cluster"] == 8, plan
     fb_wavefront.reset_launch_counts()
     got = getattr(fb_wavefront, kernel)(*args, **kw)
     want = getattr(fb_wavefront, f"{kernel}_reference")(*args, **kw)
     torch.cuda.synchronize()
     assert fb_wavefront.LAUNCHES[kernel] == 1
     assert fb_wavefront.LAUNCHES[f"wide_{kernel}"] == 1
+    assert fb_wavefront.LAUNCHES[f"cluster_{kernel}"] == 1
     what = f"wide {kernel} S={hmm.state_number} W={W} window={window}"
     if kernel == "bwd":
         assert_bwd_close(got, want, what)
     elif kernel == "exp":
         assert_exp_close(got, want, what)
     else:
-        keys = ["F", "bv", "mf"] + [f"carry {i}" for i in range(3)]
-        flat = list(got[:3]) + list(got[3] if window else [])
-        ref = list(want[:3]) + list(want[3] if window else [])
-        for key, g, w in zip(keys, flat, ref):
-            rtol, atol = TOLERANCES.get(key, (1e-4, 1e-6))
-            torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
-                                       msg=f"{what} {key}")
+        assert_fwd_equal(got, want, window, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [False, True])
+def test_wide_fwd_global_route_above_cluster_capacity(cuda_device, window):
+    """Above the fwd cluster's capacity (the backward cluster's: W >
+    12288) the plan declares the global-scratch kernel; it runs and
+    equals fwd_reference bit for bit (23 diagonals)."""
+    W = 12320
+    hmm = PairHMM.from_state_machine(state_machine5())
+    assert fb_wavefront.fwd_wide_plan(5, W)["cluster"] == 0
+    assert fb_wavefront.fwd_wide_plan(5, 12288)["cluster"] == 8
+    args, kw = _on(cuda_device, *_wide_inputs("fwd", hmm, W, window, R=23))
+    fb_wavefront.reset_launch_counts()
+    got = fb_wavefront.fwd(*args, **kw)
+    want = fb_wavefront.fwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert fb_wavefront.LAUNCHES["wide_fwd"] == 1
+    assert fb_wavefront.LAUNCHES["cluster_fwd"] == 0
+    assert_fwd_equal(got, want, window, f"global wide fwd W={W} window={window}")
 
 
 @pytest.mark.cuda
@@ -897,3 +913,29 @@ def test_cluster_matches_global_variant(cuda_device, kernel, window, cluster):
         assert_bwd_close(got, ref, what)
     else:
         assert_exp_close(got, ref, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,cluster,slots", [
+    (4224, 3, 4), (4224, 4, 4), (4224, 8, 2), (8200, 8, 4)])
+@pytest.mark.parametrize("window", [False, True])
+def test_fwd_cluster_matches_global_variant(cuda_device, W, window, cluster,
+                                            slots):
+    """wavefront_fwd_cluster (3, 4 or 8 CTAs, at the plan's 2 or 4 slots a
+    thread) against the global-scratch kernel on the same inputs, bit for
+    bit: F, bv, mf and the carry out (both round as fwd_reference). At
+    W=8200 only a cluster of 8 holds the band."""
+    hmm = PairHMM.from_state_machine(state_machine5())
+    args, kw = _on(cuda_device, *_wide_inputs("fwd", hmm, W, window))
+    with _cluster_limit(cluster):
+        plan = fb_wavefront.fwd_wide_plan(5, W)
+        assert plan["cluster"] == cluster, plan
+        assert plan["slots"] == slots, plan
+        got = fb_wavefront.fwd(*args, **kw)
+    with _cluster_limit(0):
+        assert fb_wavefront.fwd_wide_plan(5, W)["cluster"] == 0
+        ref = fb_wavefront.fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert_fwd_equal(got, ref, window,
+                     f"fwd cluster {cluster} at {plan['slots']} slots vs "
+                     f"global, W={W} window={window}")
