@@ -96,7 +96,12 @@ Phases (any failure raises, so the exit code is non-zero):
      must agree, with each run's wall time; (c) one EM iteration under
      utils.metrics.trace, whose trace must name wavefront_exp and
      wavefront_fwd; (d) CPECAN_TPU_DEBUG=1 on the headline batch: the
-     same outputs as unchecked, and a NaN transition raises "fb debug".
+     same outputs as unchecked, and a NaN transition raises "fb debug";
+ 15. bench: python -m cpecan_tpu_torch.bench (bench.py's nine configs on
+     the port) as a user runs it, each in a process of its own with a
+     timeout: --all --smoke (every config's output check must pass), then
+     --config headline at full size; either exiting non-zero fails the
+     smoke.
 
 Each phase's wall time is printed on a line of its own ("phase wall:").
 The last two lines of standard output are the kernels' JSON summary and
@@ -113,6 +118,7 @@ import json
 import os
 import random
 import re
+import signal
 import socket
 import statistics
 import subprocess
@@ -2819,6 +2825,55 @@ def phase_data_parallel(card, tmp, fasta, cig, seqs, cigars):
     return walls
 
 
+# python -m cpecan_tpu_torch.bench: every config at --smoke sizes, then
+# the headline at full size, each in a process of its own
+BENCH_RUNS = (["--all", "--smoke"], ["--config", "headline"])
+BENCH_TIMEOUT_S = 600  # per bench process
+
+
+def _bench(args):
+    """``python -m cpecan_tpu_torch.bench *args`` in its own process group,
+    with a timeout; the group is stopped before this returns. Returns
+    (its JSON report, wall seconds); a non-zero exit raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cpecan_tpu_torch.bench", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench {' '.join(args)} exited with "
+                           f"{proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+    return json.loads(out.splitlines()[-1]), wall
+
+
+def phase_bench(card):
+    """Phase 15: the port's benchmark harness end to end, as a user runs
+    it: every config of bench.py at --smoke sizes (each output check must
+    pass), then the headline at full size."""
+    for args in BENCH_RUNS:
+        report, wall = _bench(args)
+        if report["backend"] != card:
+            raise AssertionError(f"bench ran on {report['backend']}, not {card}")
+        for c in report["configs"]:
+            if c["check"] != "ok":
+                raise AssertionError(f"bench config {c['name']}: {c['check']}")
+            log(f"bench {' '.join(args)}: {c['name']} {c['metric']} = "
+                f"{c['value']} {c['unit']} (vs C {c['vs_baseline']}), check "
+                f"{c['check']}")
+        log(f"bench {' '.join(args)}: {len(report['configs'])} configs in "
+            f"{wall:.1f} s; C baseline {report['c_baseline_cells_per_sec']:.4g} "
+            f"cells/s (runs {report['c_baseline_runs']}); power limit "
+            f"{report['power_limit']}")
+
+
 def _no_jax_package():
     bad = sorted(m for m in sys.modules if m in ("jax", "cpecan_tpu")
                  or m.startswith(("jax.", "cpecan_tpu.")))
@@ -2887,7 +2942,8 @@ def main() -> int:
                 ("12 wide bands", lambda: phase_wide(card, tmp, sites)),
                 ("13 msa and align", lambda: phase_msa_align(card, tmp)),
                 ("14 data parallel", lambda: phase_data_parallel(
-                    card, tmp, fasta, cig, seqs, cigars))):
+                    card, tmp, fasta, cig, seqs, cigars)),
+                ("15 bench", lambda: phase_bench(card))):
             with _wall(phase):
                 run()
     _no_jax_package()

@@ -168,8 +168,19 @@ def _symbols():
         yield mod.encode(x + "Nn"), mod.reverse_complement(x)
 
 
+def _bench_cells_c():
+    """The C comparator of the port's bench: a byte-for-byte copy."""
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    for path in ("native/bench_cells.c",
+                 "cpecan_tpu_torch/csrc/host/bench_cells.c"):
+        yield (repo / path).read_bytes()
+
+
 CASES = {
     "band": _band,
+    "bench_cells_c": _bench_cells_c,
     "cigar_io": _cigar_io,
     "hmm_text_five_state": _hmm_text("fiveState"),
     "hmm_text_three_state": _hmm_text("threeState"),

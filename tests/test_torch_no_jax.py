@@ -71,7 +71,8 @@ def test_importing_every_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=_REPO, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert {"cpecan_tpu_torch.cli.realign", "cpecan_tpu_torch.cli.em",
+    assert {"cpecan_tpu_torch.bench",
+            "cpecan_tpu_torch.cli.realign", "cpecan_tpu_torch.cli.em",
             "cpecan_tpu_torch.cli.align", "cpecan_tpu_torch.cli.modify_hmm",
             "cpecan_tpu_torch.em.modify_hmm",
             "cpecan_tpu_torch.msa.aligner",
