@@ -2826,15 +2826,17 @@ def phase_data_parallel(card, tmp, fasta, cig, seqs, cigars):
 
 
 # python -m cpecan_tpu_torch.bench: every config at --smoke sizes, then
-# the headline at full size, each in a process of its own
+# the headline at full size with the first run's progress lines as its
+# --resume-log, each in a process of its own
 BENCH_RUNS = (["--all", "--smoke"], ["--config", "headline"])
 BENCH_TIMEOUT_S = 600  # per bench process
+_REFUSED = "--resume-log: headline is run again: "
 
 
 def _bench(args):
     """``python -m cpecan_tpu_torch.bench *args`` in its own process group,
     with a timeout; the group is stopped before this returns. Returns
-    (its JSON report, wall seconds); a non-zero exit raises."""
+    (its JSON report, its stderr, wall seconds); a non-zero exit raises."""
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.Popen(
@@ -2851,27 +2853,67 @@ def _bench(args):
     if proc.returncode != 0:
         raise RuntimeError(f"bench {' '.join(args)} exited with "
                            f"{proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
-    return json.loads(out.splitlines()[-1]), wall
+    return json.loads(out.splitlines()[-1]), err, wall
 
 
-def phase_bench(card):
+def _check_resume_refusal(report, err, commit):
+    """The full-size headline was run, not taken from the smoke run's
+    log: its refusal names smoke as a field that differs (commit, when
+    this checkout's commit is unknown or dirty and vouches for nothing)."""
+    (headline,) = report["configs"]
+    if headline.get("resumed"):
+        raise AssertionError("bench reused the smoke run's headline line")
+    refusals = [ln[len(_REFUSED):] for ln in err.splitlines()
+                if ln.startswith(_REFUSED)]
+    if len(refusals) != 1:
+        raise AssertionError(f"bench printed {len(refusals)} refusals of the "
+                             f"headline's smoke line:\n{err[-3000:]}")
+    fields = [part.split(":")[0] for part in refusals[0].split("; ")]
+    vouches = commit != "unknown" and not commit.endswith("+dirty")
+    if ("smoke" if vouches else "commit") not in fields:
+        raise AssertionError(f"headline refused for {refusals[0]!r}")
+    log(f"bench --resume-log: headline run again: {refusals[0]}")
+
+
+def phase_bench(card, tmp):
     """Phase 15: the port's benchmark harness end to end, as a user runs
     it: every config of bench.py at --smoke sizes (each output check must
-    pass), then the headline at full size."""
-    for args in BENCH_RUNS:
-        report, wall = _bench(args)
+    pass), then the headline at full size, which must not reuse the smoke
+    run's line; each report names this checkout's commit as the bench's
+    own commit lookup gives it in this process."""
+    from cpecan_tpu_torch import bench
+
+    commit = bench.resolve_commit()
+    resume_log = f"{tmp}/bench_smoke.log"
+    for i, args in enumerate(BENCH_RUNS):
+        if i:
+            args = [*args, "--resume-log", resume_log]
+        report, err, wall = _bench(args)
+        if i == 0:
+            with open(resume_log, "w") as fh:
+                fh.write(err)
+        else:
+            _check_resume_refusal(report, err, commit[0])
         if report["backend"] != card:
             raise AssertionError(f"bench ran on {report['backend']}, not {card}")
+        if (report["commit"], report["commit_source"]) != commit:
+            raise AssertionError(f"bench reported the commit "
+                                 f"{report['commit']!r} ({report['commit_source']}),"
+                                 f" this process finds {commit}")
         for c in report["configs"]:
             if c["check"] != "ok":
                 raise AssertionError(f"bench config {c['name']}: {c['check']}")
+            if c["stamp"]["device"] != card or c["stamp"]["commit"] != commit[0]:
+                raise AssertionError(f"bench config {c['name']}: stamp "
+                                     f"{c['stamp']}")
             log(f"bench {' '.join(args)}: {c['name']} {c['metric']} = "
                 f"{c['value']} {c['unit']} (vs C {c['vs_baseline']}), check "
                 f"{c['check']}")
         log(f"bench {' '.join(args)}: {len(report['configs'])} configs in "
             f"{wall:.1f} s; C baseline {report['c_baseline_cells_per_sec']:.4g} "
             f"cells/s (runs {report['c_baseline_runs']}); power limit "
-            f"{report['power_limit']}")
+            f"{report['power_limit']}; commit {report['commit']} "
+            f"({report['commit_source']})")
 
 
 def _no_jax_package():
@@ -2943,7 +2985,7 @@ def main() -> int:
                 ("13 msa and align", lambda: phase_msa_align(card, tmp)),
                 ("14 data parallel", lambda: phase_data_parallel(
                     card, tmp, fasta, cig, seqs, cigars)),
-                ("15 bench", lambda: phase_bench(card))):
+                ("15 bench", lambda: phase_bench(card, tmp))):
             with _wall(phase):
                 run()
     _no_jax_package()

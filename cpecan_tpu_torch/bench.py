@@ -11,10 +11,17 @@ seeds, so both measure the same inputs; every config keeps bench.py's
     python -m cpecan_tpu_torch.bench --config NAME     # one config
     python -m cpecan_tpu_torch.bench --all --smoke --device cpu
 
-``--all`` prints one JSON report and writes it to BENCH_TORCH_ALL.json
+``--all`` prints one JSON report and, for a full run on the card whose
+checks pass and whose commit is known, writes it to BENCH_TORCH_ALL.json
 (never bench.py's BENCH_ALL.json, the TPU's record); ``--smoke`` runs tiny
 sizes whose numbers mean nothing; ``--resume-log`` reuses the per-config
-JSON lines of an earlier run's log, as bench.py's does.
+JSON lines of an earlier run's log that were measured the same way.
+
+The report names the code it measured: ``commit`` is ROOT's git HEAD (with
+``+dirty`` when a tracked file differs from it), else ``--commit REV``,
+else $CPECAN_BENCH_COMMIT, else "unknown"; ``commit_source`` says which
+(git, flag, env or none). A checkout unpacked from ``git archive`` has no
+repository, so its caller names the commit.
 
 Where the port differs from bench.py:
 
@@ -49,6 +56,13 @@ Where the port differs from bench.py:
   the one device against no mesh (bench.py: an 8-device virtual CPU mesh):
   it measures dispatch and reduction overhead, not hardware scaling.
 * ``--update-readme`` is not ported: the README's bench table is the TPU's.
+* Every per-config line and every config of the report carries a
+  ``stamp``: the commit, ``smoke``, the device (the card's name or cpu)
+  and the config's size overrides (``kwargs``, {} at full size).
+  ``--resume-log`` reuses a line only when its stamp equals the one this
+  run gives the config, and nothing while this run's commit is unknown or
+  dirty; every refused line is named on stderr and its config run again.
+  bench.py reuses any line with a config's name and trusts the caller.
 """
 
 from __future__ import annotations
@@ -829,8 +843,66 @@ def run_config(b: Bench, name: str, kwargs: dict) -> dict:
                 "error": traceback.format_exc()[-4000:]}
 
 
-def _read_resume_log(path: str) -> dict:
-    resumed = {}
+COMMIT_ENV = "CPECAN_BENCH_COMMIT"
+UNKNOWN_COMMIT = "unknown"
+# why an --all run on the card writes nothing when its commit is unknown
+NO_COMMIT = ("the commit is unknown: a checkout from git archive has no "
+             "repository, so its caller names the commit with --commit REV "
+             f"or ${COMMIT_ENV}")
+
+
+def _git(*args) -> str:
+    """git's stdout in ROOT, stripped; "" when git is missing or fails."""
+    try:
+        res = subprocess.run(["git", *args], capture_output=True, text=True,
+                             cwd=ROOT, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    return res.stdout.strip() if res.returncode == 0 else ""
+
+
+def resolve_commit(flag: str | None = None) -> tuple:
+    """(commit, source) of the code this run measures: ROOT's git HEAD,
+    with "+dirty" when a tracked file differs from it ("git"); else
+    ``--commit``'s value ("flag"); else $CPECAN_BENCH_COMMIT ("env"); else
+    ("unknown", "none"). ROOT counts as a repository only when it is the
+    top of one, so a package that lies inside another project's
+    repository does not report that project's commit."""
+    top_head = _git("rev-parse", "--show-toplevel", "HEAD").splitlines()
+    if (len(top_head) == 2
+            and Path(top_head[0]).resolve() == Path(ROOT).resolve()):
+        dirty = _git("status", "--porcelain", "--untracked-files=no")
+        return top_head[1] + ("+dirty" if dirty else ""), "git"
+    if flag:
+        return flag, "flag"
+    if os.environ.get(COMMIT_ENV):
+        return os.environ[COMMIT_ENV], "env"
+    return UNKNOWN_COMMIT, "none"
+
+
+def _stamp_refusal(line_stamp, run_stamp: dict) -> str | None:
+    """Why a resume line with ``line_stamp`` may not stand for a config
+    this run stamps ``run_stamp`` ("field: ..."), or None."""
+    commit = run_stamp["commit"]
+    if commit == UNKNOWN_COMMIT or commit.endswith("+dirty"):
+        return (f"commit: this run's commit is {commit!r}, which vouches "
+                "for no earlier line")
+    if not isinstance(line_stamp, dict):
+        return "stamp: the line has none"
+    fields = [k for k in run_stamp if line_stamp.get(k) != run_stamp[k]]
+    fields += [k for k in line_stamp if k not in run_stamp]
+    if not fields:
+        return None
+    return "; ".join(f"{k}: the line's {line_stamp.get(k)!r}, this run's "
+                     f"{run_stamp.get(k)!r}" for k in fields)
+
+
+def _read_resume_log(path: str, stamps: dict) -> dict:
+    """{config: its JSON line} from an earlier run's log, for the configs
+    of ``stamps`` ({config: the stamp this run gives it}) whose line is
+    stamped the same. A refused line gets one line on stderr with the
+    config and the stamp field that differs; its config is run again."""
+    resumed, refused = {}, {}
     with open(path) as fh:
         for line in fh:
             line = line.strip()
@@ -840,18 +912,38 @@ def _read_resume_log(path: str) -> dict:
                 rec = json.loads(line)
             except ValueError:
                 continue
-            if rec.get("name") in CONFIGS and "metric" in rec:
-                resumed[rec["name"]] = rec
+            name = rec.get("name")
+            if name not in stamps or "metric" not in rec:
+                continue
+            why = _stamp_refusal(rec.get("stamp"), stamps[name])
+            if why is None:
+                resumed[name] = rec
+            else:
+                refused[name] = why
+    for name, why in refused.items():
+        if name not in resumed:
+            print(f"--resume-log: {name} is run again: {why}", file=sys.stderr,
+                  flush=True)
     return resumed
 
 
-def _commit() -> str:
-    try:
-        out = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
-                             capture_output=True, text=True, cwd=ROOT).stdout
-    except OSError:
-        return "unknown"
-    return out.strip() or "unknown"
+def report_refusal(configs: list, *, smoke: bool, one_config: bool,
+                   device: torch.device, commit: str) -> str | None:
+    """Why an --all report must not be written to REPORT, or None. It is
+    written only for a full run (no --smoke, no --config) on the card
+    whose every check passed and whose commit is known."""
+    failed = [c["name"] for c in configs if c.get("check") != "ok"]
+    if failed:
+        return f"the check of {', '.join(failed)} did not pass"
+    if smoke:
+        return "--smoke sizes mean nothing"
+    if one_config:
+        return "--config runs one config"
+    if device.type != "cuda":
+        return f"the run was on the {device.type}, not the card"
+    if commit == UNKNOWN_COMMIT:
+        return NO_COMMIT
+    return None
 
 
 def main(argv=None) -> int:
@@ -860,7 +952,7 @@ def main(argv=None) -> int:
         description="bench.py's configs on the PyTorch port")
     ap.add_argument("--all", action="store_true",
                     help="run every config; one JSON report, also written "
-                         f"to {REPORT.name}")
+                         f"to {REPORT.name} by a full run on the card")
     ap.add_argument("--config", choices=sorted(CONFIGS),
                     help="run a single named config")
     ap.add_argument("--smoke", action="store_true",
@@ -869,9 +961,14 @@ def main(argv=None) -> int:
                          "written)")
     ap.add_argument("--resume-log", metavar="PATH",
                     help="reuse per-config JSON progress lines from an "
-                         "earlier run's log: configs recorded there are not "
-                         "run again (the caller vouches that the log came "
-                         "from the same code)")
+                         "earlier run's log whose stamp (commit, smoke, "
+                         "device, size overrides) equals this run's: those "
+                         "configs are not run again")
+    ap.add_argument("--commit", metavar="REV",
+                    help="the commit of this checkout, for a checkout with "
+                         "no git repository (one from git archive); the "
+                         "repository's HEAD wins when there is one, "
+                         f"${COMMIT_ENV} is read when neither is there")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions; the report is never written)")
@@ -890,32 +987,45 @@ def main(argv=None) -> int:
         print(json.dumps(result))
         return 0 if result["check"] == "ok" else 1
 
-    resumed = _read_resume_log(args.resume_log) if args.resume_log else {}
+    commit, commit_source = resolve_commit(args.commit)
+    where = device_report(device)
     names = [args.config] if args.config else list(CONFIGS)
+    stamps = {name: {"commit": commit, "smoke": args.smoke,
+                     "device": where["backend"], "kwargs": smoke.get(name, {})}
+              for name in names}
+    resumed = (_read_resume_log(args.resume_log, stamps) if args.resume_log
+               else {})
     configs = []
     for name in names:
         if name in resumed:
             result = {**resumed[name], "resumed": True}
         else:
-            result = run_config(b, name, smoke.get(name, {}))
+            result = {**run_config(b, name, stamps[name]["kwargs"]),
+                      "stamp": stamps[name]}
         configs.append(result)
         print(json.dumps(result), file=sys.stderr, flush=True)  # progress
 
     report = {
-        **device_report(device),
+        **where,
         "c_baseline_cells_per_sec": baseline,
         "c_baseline_runs": rates,
         "date": time.strftime("%Y-%m-%d"),
-        "commit": _commit(),
+        "commit": commit,
+        "commit_source": commit_source,
         "configs": configs,
     }
     print(json.dumps(report))
-    ok = all(c.get("check") == "ok" for c in configs)
-    if ok and not (args.smoke or args.config) and device.type == "cuda":
+    refusal = report_refusal(configs, smoke=args.smoke,
+                             one_config=bool(args.config), device=device,
+                             commit=commit)
+    if refusal is None:
         with open(REPORT, "w") as fh:
             json.dump(report, fh, indent=2)
             fh.write("\n")
-    return 0 if ok else 1
+    elif args.all:
+        print(f"{REPORT.name} not written: {refusal}", file=sys.stderr)
+    ok = all(c.get("check") == "ok" for c in configs)
+    return 0 if ok and refusal != NO_COMMIT else 1
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ a card make the run fail."""
 
 import ast
 import contextlib
+import functools
 import importlib.util
 import io
 import json
@@ -249,17 +250,176 @@ def test_c_comparator_failure_raises(monkeypatch, tmp_path, source, error):
         t_bench.measure_c_baseline()
 
 
-def test_resume_log_reuses_recorded_configs(tmp_path, capsys):
-    """A config recorded in an earlier run's log is not run again (an
-    unknown name or a line that is no JSON object is skipped)."""
-    log = tmp_path / "bench.log"
+# ------------------------------------------------ commit and resume log
+
+
+def _git(cwd, *args):
+    return subprocess.run(["git", "-c", "user.name=bench", "-c",
+                           "user.email=bench@example.com", "-c",
+                           "commit.gpgsign=false", *args], cwd=cwd, check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _checkout(tmp_path, kind):
+    """A checkout of kind "repo" (a git repository with one commit),
+    "dirty" (the same with a tracked file modified) or "copy" (no
+    repository, as one unpacked from git archive); (its path, the commit
+    git gives it or None)."""
+    root = tmp_path / kind
+    root.mkdir()
+    (root / "tracked.txt").write_text("one\n")
+    if kind == "copy":
+        return root, None
+    _git(root, "init", "-q")
+    _git(root, "add", "tracked.txt")
+    _git(root, "commit", "-q", "-m", "one")
+    (root / "untracked.txt").write_text("not a change of the commit\n")
+    head = _git(root, "rev-parse", "HEAD")
+    if kind == "dirty":
+        (root / "tracked.txt").write_text("two\n")
+        return root, head + "+dirty"
+    return root, head
+
+
+# kind of checkout, --commit, $CPECAN_BENCH_COMMIT -> the source that wins
+_COMMIT_CASES = {
+    "git_over_flag_and_env": ("repo", "f1a9", "e4v", "git"),
+    "git_dirty": ("dirty", "f1a9", None, "git"),
+    "flag_over_env": ("copy", "f1a9", "e4v", "flag"),
+    "flag": ("copy", "f1a9", None, "flag"),
+    "env": ("copy", None, "e4v", "env"),
+    "none": ("copy", None, None, "none"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_COMMIT_CASES))
+def test_commit_source(case, tmp_path, monkeypatch):
+    kind, flag, env, source = _COMMIT_CASES[case]
+    root, head = _checkout(tmp_path, kind)
+    monkeypatch.setattr(t_bench, "ROOT", root)
+    if env is None:
+        monkeypatch.delenv(t_bench.COMMIT_ENV, raising=False)
+    else:
+        monkeypatch.setenv(t_bench.COMMIT_ENV, env)
+    want = {"git": head, "flag": flag, "env": env, "none": "unknown"}[source]
+    assert t_bench.resolve_commit(flag) == (want, source)
+
+
+_EM_STAMP = {"commit": "c0ffee", "smoke": False, "device": "cpu", "kwargs": {}}
+
+
+@pytest.fixture
+def em_run(tmp_path, monkeypatch):
+    """main(--config em --device cpu --resume-log LOG) on a checkout with
+    no repository, the C comparator stubbed and em at its smoke sizes
+    under its full-size stamp: run(log lines, extra args) -> (exit code,
+    the report, stderr)."""
+    root, _ = _checkout(tmp_path, "copy")
+    monkeypatch.setattr(t_bench, "ROOT", root)
+    monkeypatch.delenv(t_bench.COMMIT_ENV, raising=False)
+    monkeypatch.setattr(t_bench, "measure_c_baseline", lambda: (1.0, [1.0]))
+    monkeypatch.setitem(t_bench.CONFIGS, "em", functools.partial(
+        t_bench.bench_em, **t_bench.SMOKE_KWARGS["em"]))
+
+    def run(lines, *args):
+        log = tmp_path / "bench.log"
+        log.write_text("".join(json.dumps(rec) + "\n" for rec in lines))
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = t_bench.main(["--config", "em", "--resume-log", str(log),
+                               "--device", "cpu", *args])
+        return rc, json.loads(out.getvalue().splitlines()[-1]), err.getvalue()
+
+    return run
+
+
+def test_resume_log_reuses_recorded_configs(em_run):
+    """A config recorded in an earlier run's log with this run's stamp is
+    not run again (an unknown name or a line that is no JSON object is
+    skipped)."""
     rec = {"name": "em", "metric": "em_iterations_per_sec_64x1kb",
-           "value": 1.0, "unit": "iters/s", "check": "ok"}
-    log.write_text("starting\n{not json\n"
-                   + json.dumps({**rec, "name": "other"}) + "\n"
-                   + json.dumps(rec) + "\n")
-    rc = t_bench.main(["--config", "em", "--resume-log", str(log),
-                       "--device", "cpu"])
+           "value": 1.0, "unit": "iters/s", "check": "ok", "stamp": _EM_STAMP}
+    rc, report, err = em_run(["starting", {**rec, "name": "other"}, rec],
+                             "--commit", "c0ffee")
     assert rc == 0
-    report = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert report["configs"] == [{**rec, "resumed": True}]
+    assert (report["commit"], report["commit_source"]) == ("c0ffee", "flag")
+    assert "--resume-log" not in err
+
+
+_CARD = {"backend": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W",
+         "device_count": 1}
+# the line's stamp, the run's --commit (None: none), the checkout, whether
+# the run reports a card -> the field its refusal names
+_REFUSALS = {
+    "unstamped": (None, "c0ffee", "copy", False, "stamp"),
+    "smoke_line_in_full_run": ({**_EM_STAMP, "smoke": True, "kwargs":
+                                t_bench.SMOKE_KWARGS["em"]},
+                               "c0ffee", "copy", False, "smoke"),
+    "cpu_line_in_card_run": ({**_EM_STAMP, "device": "cpu"}, "c0ffee",
+                             "copy", True, "device"),
+    "other_commit": ({**_EM_STAMP, "commit": "0ther"}, "c0ffee", "copy",
+                     False, "commit"),
+    "unknown_commit": ({**_EM_STAMP, "commit": "unknown"}, None, "copy",
+                       False, "commit"),
+    "dirty_commit": ("dirty", None, "dirty", False, "commit"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSALS))
+def test_resume_log_refuses_lines_stamped_otherwise(case, em_run, tmp_path,
+                                                    monkeypatch):
+    """A line whose stamp is not this run's (or any line, while this run's
+    commit is unknown or dirty) is named on stderr with the field that
+    differs, and its config is run again."""
+    stamp, commit, kind, card, field = _REFUSALS[case]
+    if kind == "dirty":
+        root, head = _checkout(tmp_path, kind)
+        monkeypatch.setattr(t_bench, "ROOT", root)
+        stamp = {**_EM_STAMP, "commit": head}  # the run's own stamp
+    if card:
+        monkeypatch.setattr(t_bench, "device_report", lambda device: _CARD)
+    rec = {"name": "em", "metric": "em_iterations_per_sec_64x1kb",
+           "value": -1.0, "unit": "iters/s", "check": "ok"}
+    if stamp is not None:
+        rec["stamp"] = stamp
+    rc, report, err = em_run([rec], *(["--commit", commit] if commit else []))
+    assert rc == 0, err[-3000:]
+    (result,) = report["configs"]
+    assert "resumed" not in result and result["value"] > 0
+    assert result["check"] == "ok"
+    want = {**_EM_STAMP, "commit": report["commit"],
+            "device": _CARD["backend"] if card else "cpu"}
+    assert result["stamp"] == want
+    if case == "unknown_commit":
+        assert (report["commit"], report["commit_source"]) == ("unknown", "none")
+    refusals = [ln for ln in err.splitlines() if ln.startswith("--resume-log:")]
+    assert refusals and refusals[0].startswith(
+        f"--resume-log: em is run again: {field}: "), refusals
+
+
+_OK = [{"name": "headline", "check": "ok"}]
+_CUDA = torch.device("cuda", 0)
+# configs, smoke, one config, device, commit -> why nothing is written
+_WRITES = {
+    "full_card_run": (_OK, False, False, _CUDA, "c0ffee", None),
+    "dirty_commit": (_OK, False, False, _CUDA, "c0ffee+dirty", None),
+    "smoke": (_OK, True, False, _CUDA, "c0ffee", "--smoke"),
+    "one_config": (_OK, False, True, _CUDA, "c0ffee", "--config"),
+    "cpu": (_OK, False, False, torch.device("cpu"), "c0ffee", "on the cpu"),
+    "unknown_commit": (_OK, False, False, _CUDA, "unknown", "commit is unknown"),
+    "failed_check": ([*_OK, {"name": "em", "check": "failed: counts"}], False,
+                     False, _CUDA, "c0ffee", "check of em"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WRITES))
+def test_report_written_only_for_a_full_card_run(case):
+    configs, smoke, one, device, commit, why = _WRITES[case]
+    got = t_bench.report_refusal(configs, smoke=smoke, one_config=one,
+                                 device=device, commit=commit)
+    if why is None:
+        assert got is None
+    else:
+        assert why in got
+    assert (got == t_bench.NO_COMMIT) == (case == "unknown_commit")

@@ -4,11 +4,19 @@ align (port on the CPU): stdout identical to cpecan_tpu.cli.align's on
 tests/test_cli.py's align fixture and on a 3-target x 2-query fasta,
 with the default model and with --loadHmm. modify_hmm (host only): the
 output model file byte-identical for each of its flags, on 5- and
-3-state models.
+3-state models. Each of the JAX package's console scripts in
+pyproject.toml has a -torch counterpart whose target is a callable main of
+cpecan_tpu_torch.cli, and --help through it loads no jax.
 """
 
 import io
+import json
+import os
 import random
+import subprocess
+import sys
+import tomllib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -111,3 +119,44 @@ def test_modify_hmm_cli_matches_jax(flags, hmm_type, tmp_path):
     assert out["port"] == out["jax"]
     with open(in_file, "rb") as fh:
         assert out["port"] != fh.read()
+
+
+_REPO = Path(__file__).resolve().parents[1]
+_SCRIPTS = tomllib.loads((_REPO / "pyproject.toml").read_text())[
+    "project"]["scripts"]
+_JAX_SCRIPTS = sorted(k for k, v in _SCRIPTS.items()
+                      if v.startswith("cpecan_tpu.cli."))
+
+# the console script's call: main() with the script's name and --help in
+# sys.argv, in a fresh interpreter; prints the exit code and what of jax
+# and the JAX package got loaded
+_HELP = """
+import importlib, json, sys
+module, func = sys.argv[1].split(":")
+main = getattr(importlib.import_module(module), func)
+sys.argv = [sys.argv[2], "--help"]
+try:
+    code = main()
+except SystemExit as e:
+    code = e.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cpecan_tpu"))
+print(json.dumps({"callable": callable(main), "code": code, "bad": bad}))
+"""
+
+
+@pytest.mark.parametrize("script", _JAX_SCRIPTS)
+def test_console_script_has_a_torch_counterpart(script):
+    assert len(_JAX_SCRIPTS) == 4
+    target = _SCRIPTS[f"{script}-torch"]
+    module = _SCRIPTS[script].split(":")[0].replace("cpecan_tpu.",
+                                                    "cpecan_tpu_torch.", 1)
+    assert target == f"{module}:main"
+    proc = subprocess.run(
+        [sys.executable, "-c", _HELP, target, f"{script}-torch"],
+        capture_output=True, text=True, cwd=_REPO, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(_REPO)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    *help_text, last = proc.stdout.splitlines()
+    assert json.loads(last) == {"callable": True, "code": 0, "bad": []}
+    # the port's parsers keep the JAX package's program names
+    assert any(line.startswith(f"usage: {script} ") for line in help_text)
