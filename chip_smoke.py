@@ -9,10 +9,12 @@ Phases (any failure raises, so the exit code is non-zero):
   2. build: compile the CUDA kernels from cpecan_tpu_torch/csrc with nvcc
      (four parts at once);
   3. kernels: on four batches (headline, dense anchors, 3-state ragged,
-     full band W >= 1024) run the forward and backward kernels and their
+     full band W >= 1024) run the prep kernel (wavefront_prep, the
+     stream prep's slot part), the forward and backward kernels and their
      plain PyTorch versions on the same card tensors, check the
-     tolerances, and time the kernels per call (the plain versions' one
-     call at the headline batch); on the headline and the 3-state
+     tolerances (the prep bit for bit) and time the kernels per call
+     (the plain versions' one call at the headline batch; the prep's
+     plain version on every batch); on the headline and the 3-state
      batch the same for the expectation kernel, and on a full band of
      2.5 kb pairs with its emission bins in device scratch (W > 2048);
      then the forward and the backward kernel across band widths 32-4096
@@ -23,7 +25,8 @@ Phases (any failure raises, so the exit code is non-zero):
      it has one;
   4. realign main path: cpecan_tpu_torch.cli.realign.main on 1024
      generated 1 kb record pairs (default decode) and 128 of them with
-     --mea, with every kernel's launch count reset before and read after;
+     --mea, with every kernel's launch count reset before and read after
+     (fwd, bwd and the prep must have run);
   5. card against CPU: realign.main with --device cpu (the kernels' plain
      versions) on the first 8 records, default and --mea, must give the
      card run's cigars; batch_posteriors at the main path's parameters on
@@ -43,15 +46,17 @@ Phases (any failure raises, so the exit code is non-zero):
      the exact streaming engine (posterior, expectation and forward
      modes: the kernels with carries, k0 phase and F halo) and the
      burn-in-parallel engine, each through the kernels and again through
-     their plain versions on the same card tensors; the exact engine's
-     scale streams and posteriors against the two-pass kernels';
+     their plain versions on the same card tensors (every window batch's
+     prep bit for bit); the exact engine's scale streams and posteriors
+     against the two-pass kernels';
   9. long pair: the long_500kb configuration (bench.py:616-622) through
      pairwise.get_aligned_pairs (the parallel engine), with wall and host
      seconds, windows, launches and sensitivity/specificity against the
      planted truth; its longest streamed chunk through the exact engine
      (seconds, us per diagonal), whose pair set must match the parallel
      engine's; each kernel site's largest launch on these paths again
-     through the kernel and its plain version (times and bounds);
+     through the kernel and its plain version (times and bounds), and
+     the prep of the largest window batch of each engine;
  10. long records: the realign CLI on 100-200 kb records with planted-
      truth cigars (default decode, and --mea on one), the exact engine
      against the two-pass kernels on one 100 kb chunk, and card against
@@ -63,7 +68,9 @@ Phases (any failure raises, so the exit code is non-zero):
  12. wide bands (W > 4096, the kernels' wide variants): first F2 and F4,
      every kernel (shared-memory, cluster and global-scratch) against its
      plain version on backward totals of 0, inf and NaN and on rows whose
-     raw values hold a NaN (scale 1); the batch path's three kernels on a
+     raw values hold a NaN (scale 1), and the prep on a model with NaN and
+     inf emissions (NaN off the band, bit for bit as the plain version,
+     batch and windows); the batch path's three kernels on a
      full band of 1 kb pairs padded out to W=4352 and of 500 bp pairs
      padded to an off-grid 8200 against their plain versions (fwd bit for
      bit), with times, each on the cluster kernel and again on the
@@ -183,6 +190,8 @@ def _instantiation(kernel, args):
     fwd_wide<S,batch|window>, back_wide<S,bwd|exp,batch|window>,
     back_cluster<S,slots,bwd|exp,batch|window>."""
     vals = [v for _, v in re.findall(r"L([ib])(\d+)E", args)]
+    if kernel == "wavefront_prep":  # <16-byte stores or per-slot ones>
+        return f"{kernel}<{'vector' if vals[0] == '1' else 'scalar'}>"
     vals[-1] = "window" if vals[-1] == "1" else "batch"
     if kernel in ("wavefront_fwd", "wavefront_bwd", "wavefront_exp"):
         vals[2] = "ring" if vals[2] == "1" else "direct"
@@ -316,13 +325,14 @@ def _batches():
 
 @contextlib.contextmanager
 def _plain_versions(times=None):
-    """Route the kernel wrappers, for every caller, to their plain
-    versions (which take the same arguments but the launch-count site).
+    """Route the kernel wrappers (fwd, bwd, exp and the prep's streams),
+    for every caller, to their plain versions (which take the same
+    arguments but the launch-count site).
     With a dict ``times``, each call's CUDA-event ms is appended to
     times[kernel]."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
-    saved = wf.fwd, wf.bwd, wf.exp
+    saved = wf.fwd, wf.bwd, wf.exp, wf.streams
 
     def plain(ref, kind):
         def call(*a, site=None, **kw):
@@ -333,13 +343,13 @@ def _plain_versions(times=None):
             return out
         return call
 
-    wf.fwd, wf.bwd, wf.exp = (plain(wf.fwd_reference, "fwd"),
-                              plain(wf.bwd_reference, "bwd"),
-                              plain(wf.exp_reference, "exp"))
+    wf.fwd, wf.bwd, wf.exp, wf.streams = (
+        plain(wf.fwd_reference, "fwd"), plain(wf.bwd_reference, "bwd"),
+        plain(wf.exp_reference, "exp"), plain(wf.streams_reference, "prep"))
     try:
         yield
     finally:
-        wf.fwd, wf.bwd, wf.exp = saved
+        wf.fwd, wf.bwd, wf.exp, wf.streams = saved
 
 
 def _median_ms(fn, reps):
@@ -463,11 +473,105 @@ def _check_exp(wf, hmm, args, W, name, card, reps=10):
     return ms, err, (B, R, Wd, hmm.state_number, hmm.nz)
 
 
+PREP_KEYS = ("ex", "ey", "em", "efx", "efy", "efm", "pm", "wx", "wy")
+
+
+@contextlib.contextmanager
+def _capture_prep(keep_all=False, windows=False):
+    """Keep the arguments of the prep's streams calls while the block runs
+    (every call goes through): all of them, or the largest by slots; with
+    ``windows``, only precompute_window's (their row diagonals ks are
+    (n, rows), the batch path's one row). Yields a list of argument
+    tuples."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    saved = wf.streams
+    kept = []
+
+    def call(*args):
+        out = saved(*args)
+        if windows and args[5].dim() != 2:
+            return out
+        if keep_all or not kept or out["ex"].numel() > kept[0][1]:
+            entry = (args, out["ex"].numel())
+            kept[:] = kept + [entry] if keep_all else [entry]
+        return out
+
+    wf.streams = call
+    try:
+        yield kept
+    finally:
+        wf.streams = saved
+        kept[:] = [args for args, _ in kept]
+
+
+def _prep_bound(args):
+    """(bound_ms, bound_by) of one streams call: its inputs read once (the
+    padded symbols, the row tensors as the kernel reads them: 16 + 1 bytes
+    a row, the three tables) and its 9 outputs written once (6 f32 and 3
+    int8 per slot), over HBM's rate; its fp32 operations (the 6 masking
+    multiplies per slot) over the fp32 peak."""
+    sx_pad, sy_pad, B, R = args[1], args[2], *args[6].shape
+    W = args[10]
+    slots = B * R * W
+    byts = (sx_pad.numel() + sy_pad.numel() + 17 * B * R + 4 * 35
+            + (6 * 4 + 3) * slots)
+    t_bytes, t_ops = byts / PEAK_BYTES, 6 * slots / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _same_streams(got, want, what):
+    """The kernel's streams equal the plain version's bit for bit, NaN
+    where the plain version has NaN. Returns the max abs error (0)."""
+    err = 0.0
+    for k in PREP_KEYS:
+        g, w_ = got[k], want[k]
+        if g.dtype != w_.dtype or g.shape != w_.shape:
+            raise AssertionError(f"{what} {k}: {g.dtype} {tuple(g.shape)}, plain "
+                                 f"{w_.dtype} {tuple(w_.shape)}")
+        if g.is_floating_point():
+            if not torch.equal(g.isnan(), w_.isnan()):
+                raise AssertionError(f"{what} {k}: NaN elsewhere than the plain "
+                                     f"version's")
+            g, w_ = g.nan_to_num(), w_.nan_to_num()
+        if not torch.equal(g, w_):
+            n = int((g != w_).sum())
+            raise AssertionError(f"{what} {k}: {n} elements differ from the "
+                                 f"plain version's")
+        err = max(err, float((g.float() - w_.float()).abs().max()) if g.numel() else 0.0)
+    return err
+
+
+def _check_prep(args, what, card, reps=10):
+    """wavefront_prep (the streams wrapper) against streams_reference on the
+    same card tensors, bit for bit; with reps, the CUDA-event median of
+    ``reps`` kernel calls, the plain version's one call and the bound.
+    Returns {"err", "ms", "plain_ms", "bound"} (times None without reps)."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    got = wf.streams(*args)
+    want, plain_ms = _timed(lambda: wf.streams_reference(*args))
+    err = _same_streams(got, want, f"prep at {what}")
+    del got, want
+    B, R = args[6].shape
+    W = args[10]
+    out = {"err": err, "ms": None, "plain_ms": None, "bound": _prep_bound(args)}
+    if reps:
+        out["ms"] = _median_ms(lambda: wf.streams(*args), reps)
+        out["plain_ms"] = plain_ms
+        bms, by = out["bound"]
+        log(f"  prep at {what}: B={B} R={R} W={W}; kernel {out['ms']:.3f} ms, "
+            f"plain {plain_ms:.2f} ms, bound {bms:.4f} ms ({by}), "
+            f"{100 * bms / out['ms']:.1f}% of the bound; bit-equal ({card})")
+    return out
+
+
 def phase_kernels(card):
     from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
-    summary = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}, "exp": {"err": 0.0}}
+    summary = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}, "exp": {"err": 0.0},
+               "prep": {"err": 0.0}}
     wf.reset_launch_counts()
     for name, bt in _batches().items():
         hmm = PairHMM.from_state_machine(bt["sm"]).cuda()
@@ -484,7 +588,21 @@ def phase_kernels(card):
                                     *(v for k, v in errs.items()
                                       if k not in FWD_KEYS))
 
-        pre = wf.precompute(hmm, *args, width=W)
+        with _capture_prep() as kept:
+            pre = wf.precompute(hmm, *args, width=W)
+        with _plain_versions():
+            want_pre = wf.precompute(hmm, *args, width=W)
+        _same_streams(pre, want_pre, f"precompute at {name}")
+        for k in set(pre) - set(PREP_KEYS):
+            if not torch.equal(pre[k], want_pre[k]):
+                raise AssertionError(f"precompute at {name}: {k} differs")
+        del want_pre
+        chk = _check_prep(kept[0], name, card)
+        summary["prep"]["err"] = max(summary["prep"]["err"], chk["err"])
+        if name.startswith("a_"):
+            summary["prep"].update(ms=chk["ms"], plain_ms=chk["plain_ms"],
+                                   bound=chk["bound"])
+        del kept
         t = hmm.t_prob_host
         fin = (t, pre["ex"], pre["ey"], pre["em"], pre["a"], pre["b1"],
                pre["b0"], pre["F0"], hmm.nz)
@@ -848,7 +966,7 @@ def _run_realign(fasta, cigars, extra, card):
     launches = dict(wf.LAUNCHES)
     if fb_batch.LAST_ENGINE != "cuda":
         raise AssertionError(f"engine {fb_batch.LAST_ENGINE!r}, not cuda")
-    for k in ("fwd", "bwd"):
+    for k in ("fwd", "bwd", "prep"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the main path")
     _check_cigars(out, cigars)
@@ -1037,7 +1155,7 @@ def _run_em(fasta, cigar_file, out_model, n_records, extra, card):
         em_mod.maximisation_step = real_m_step
     if fb_batch.LAST_ENGINE != "cuda":
         raise AssertionError(f"engine {fb_batch.LAST_ENGINE!r}, not cuda")
-    for k in ("fwd", "exp"):
+    for k in ("fwd", "exp", "prep"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the EM path")
     if launches["bwd"] != 0:
@@ -1169,6 +1287,8 @@ SITES = {
                  "wavefront_bwd_wide"),
     "wide_exp": ("exp", "cpecan_tpu/ops/fb_wavefront.py:592",
                  "wavefront_exp_wide"),
+    # the stream prep's slot part at every site (XLA on the TPU)
+    "prep": ("prep", "cpecan_tpu/ops/fb_wavefront.py:865", "wavefront_prep"),
 }
 LONG_SITES = ("seg_fwd", "seg_bwd", "seg_exp", "par_fwd", "par_bwd")
 WIDE_SITES = ("wide_fwd", "wide_bwd", "wide_exp")
@@ -1409,10 +1529,20 @@ def phase_long_kernels(card, sites):
                 len(y), False, False, mode, W, burnin=CHECK_BURNIN,
                 threshold=0.0, window=CHECK_WINDOW)
         wf.reset_launch_counts()
-        with _capture(LONG_SITES) as kept:
+        with _capture(LONG_SITES) as kept, _capture_prep(keep_all=True) as preps:
             got = run()
         torch.cuda.synchronize()
         launches = {k: v for k, v in wf.LAUNCHES.items() if v}
+        if launches.get("prep", 0) != len(preps) or not preps:
+            raise AssertionError(f"{engine} {mode}: {len(preps)} prep calls, "
+                                 f"launches {launches}")
+        for i, args in enumerate(preps):
+            chk = _check_prep(args, f"window batch {i} of {engine} {mode}", card,
+                              reps=10 if i == 0 else 0)
+            sites["prep"]["err"] = max(sites["prep"]["err"], chk["err"])
+        log(f"  prep: {len(preps)} window batches of {engine} {mode} bit-equal "
+            f"to the plain version ({card})")
+        del preps
         with _plain_versions():
             want = run()
         err = _compare_streams(got, want, L, W,
@@ -1533,7 +1663,8 @@ def phase_long_pair(card, sites):
     metrics.reset()
     torch.cuda.synchronize()
     wf.reset_launch_counts()
-    with _capture(("par_fwd", "par_bwd")) as kept:
+    with _capture(("par_fwd", "par_bwd")) as kept, \
+            _capture_prep(windows=True) as prep:
         t0 = time.perf_counter()
         pairs = pairwise.get_aligned_pairs(sm, x, y, p, device="cuda")
         torch.cuda.synchronize()
@@ -1565,6 +1696,12 @@ def phase_long_pair(card, sites):
         f"sensitivity {sens:.4f}, specificity {spec:.4f}")
     sites["par_fwd"]["launches"] = launches["par_fwd"]
     sites["par_bwd"]["launches"] = launches["par_bwd"]
+    if launches["prep"] <= 0:
+        raise AssertionError("prep was not launched by the 500 kb path")
+    chk = _check_prep(prep[0], "the 500 kb path's largest window batch (site 7's "
+                      "streams)", card)
+    sites["prep"]["err"] = max(sites["prep"]["err"], chk["err"])
+    del prep
     for site, entry in kept.items():
         e, ms, plain_ms, bound = _check_site(
             site, entry, 5, hmm.nz, "the 500 kb path's largest slice", card)
@@ -1579,7 +1716,7 @@ def phase_long_pair(card, sites):
             fb_streaming.window_rows(p), fb_parallel.burnin_rows(p))
     torch.cuda.synchronize()
     wf.reset_launch_counts()
-    with _capture(("seg_fwd", "seg_bwd")) as kept:
+    with _capture(("seg_fwd", "seg_bwd")) as kept, _capture_prep() as prep:
         t0 = time.perf_counter()
         ex_out = _stream(*args, "exact", threshold=p.threshold)
         torch.cuda.synchronize()
@@ -1589,6 +1726,10 @@ def phase_long_pair(card, sites):
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched by the exact engine")
         sites[k]["launches"] = launches[k]
+    chk = _check_prep(prep[0], "one window of the exact engine on that chunk",
+                      card)
+    sites["prep"]["err"] = max(sites["prep"]["err"], chk["err"])
+    del prep
     par_out = _stream(*args, "parallel", threshold=p.threshold)
     log(f"  longest streamed chunk: {len(t.sub_x)} x {len(t.sub_y)}, "
         f"L={L}, W={W}: exact engine {dt:.3f} s on {card} "
@@ -2040,6 +2181,54 @@ def _nan_totals(card):
                     + f", NaN/inf patterns of every output equal ({card})")
 
 
+def _nan_prep(card, sites):
+    """wavefront_prep on a model whose emission tables hold NaN and inf
+    (gap x of A, gap y of G, match (C, T) and (G, A)): bit for bit as the
+    plain version, NaN where it has NaN, on 16 pairs of the headline's
+    shape and on windows of the first of them (precompute_window with
+    emitted row ranges); each stream must hold NaN off the band."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb as _fb
+    from cpecan_tpu_torch.ops import fb_streaming
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    hmm = PairHMM.from_state_machine(state_machine5())
+    bufs = {k: v.numpy().copy() for k, v in hmm.named_buffers()}
+    bufs["em_gap_x"][0] = np.nan
+    bufs["em_gap_y"][2] = np.inf
+    bufs["em_match"][1, 3] = np.nan
+    bufs["em_match"][2, 0] = np.inf
+    hmm = PairHMM(bufs).cuda()
+    bt = _band_batch(np.random.default_rng(4), 16, 2048, "posterior_match",
+                     state_machine5, anchor_every=50)
+    args, W = bt["args"], bt["W"]
+    with _capture_prep() as kept:
+        pre = wf.precompute(hmm, *args, width=W)
+    err = _check_prep(kept[0], "a NaN/inf emission model", card, reps=0)["err"]
+    js = torch.arange(W, device="cuda")
+    off = ~((js >= pre["jlo"][..., None]) & (js <= pre["jhi"][..., None]))
+    for k in PREP_KEYS[:6]:
+        if not pre[k][off].isnan().any():
+            raise AssertionError(f"NaN/inf model: no NaN in {k} off the band")
+    lx, ly = int(args[4][0]), int(args[5][0])
+    L, K = lx + ly, 256
+    frame = [a[0].cpu().numpy() for a in _fb._frame_from_band(args[2][:1],
+                                                              args[3][:1])]
+    sx, sy, fr = fb_streaming._device_pair(
+        args[0][0, :lx].cpu().numpy(), args[1][0, :ly].cpu().numpy(), frame,
+        K + W + 1, "cuda")
+    starts = torch.arange(1, L + 1, K, device="cuda")
+    with _capture_prep() as kept:
+        wf.precompute_window(hmm, sx, sy, fr, ly, L, starts, K, W, K + W + 1,
+                             emit=torch.stack([starts + 8, starts + K - 8], 1))
+    err = max(err, _check_prep(kept[0], "windows of a NaN/inf emission model",
+                               card, reps=0)["err"])
+    sites["prep"]["err"] = max(sites["prep"]["err"], err)
+    log(f"NaN/inf emission tables: prep bit-equal to the plain version on 16 "
+        f"pairs at W={W} and {len(starts)} windows of {K} rows, NaN off the "
+        f"band in every stream ({card})")
+
+
 def _nan_debug_on_card(bt, hmm, card):
     """F2: CPECAN_TPU_DEBUG=1 on a NaN transition (t[1, 0, 0]) through
     fb_batch on a wide batch (the cluster kernel) raises the message the
@@ -2231,6 +2420,7 @@ def phase_wide(card, tmp, sites):
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     _nan_totals(card)
+    _nan_prep(card, sites)
     _wide_batch(card, sites)
     seqs, cigars = _gap_record(21)
     fasta, cig = f"{tmp}/gap.fa", f"{tmp}/gap.cigar"
@@ -2976,6 +3166,7 @@ def main() -> int:
             phase_em_card_cpu(tmp, fasta, some)
 
         sites = {k: {"err": 0.0} for k in LONG_SITES + WIDE_SITES}
+        sites["prep"] = summary["prep"]
         for phase, run in (
                 ("8 long kernels", lambda: phase_long_kernels(card, sites)),
                 ("9 long pair", lambda: phase_long_pair(card, sites)),
@@ -3000,6 +3191,9 @@ def main() -> int:
     runs = {"fwd": launches, "bwd": launches, "exp": em_launches}
     for k in ("fwd", "bwd", "exp"):
         sites[k] = {"launches": runs[k][k], **summary[k]}
+    # the prep: launches from the realign main path, times at the headline
+    # batch, the error of every prep check (phases 3, 8, 9 and 12)
+    sites["prep"]["launches"] = launches["prep"]
     kernels = []
     for k, (_, replaces, name) in SITES.items():
         v = sites[k]

@@ -16,6 +16,11 @@
 // and computes what those bodies compute; the plain PyTorch versions
 // (cpecan_tpu_torch/ops/fb_wavefront.py fwd_reference / bwd_reference /
 // exp_reference) follow the same arithmetic and are the kernels' oracle.
+// One more kernel writes the streams those three read:
+//   wavefront_prep <- the slot part of _precompute_one
+//                    (fb_wavefront.py:865; XLA on the TPU, not Pallas),
+//                    for the batch and every window site; see there
+//                    (oracle: streams_reference).
 //
 // Layout (batch-major, all contiguous): streams (B, R, W) with R
 // diagonals and W band slots; the forward intermediate F (B, R, S, W);
@@ -2969,6 +2974,183 @@ int exp_entry(bool wide, int S, const float* t_host, const float* efx, const flo
   return launch(t_host, p, B, R, W, st);
 }
 
+// ---------------------------------------------------------------------------
+// wavefront_prep: the stream prep's slot part
+// ---------------------------------------------------------------------------
+//
+// Replaces _precompute_one (cpecan_tpu/ops/fb_wavefront.py:865), which the
+// JAX package traces into _fb_wavefront_jit (vmapped at :1000) and XLA
+// fuses into a few device passes (no Pallas kernel), with its window forms
+// _prep_window (fb_segmented.py:72) and _prep_one (fb_parallel.py:96): its
+// work over the (B, R, W) slots, which the plain version
+// (ops/fb_wavefront.py streams_reference) does in ~80 tensor ops. Per
+// (row, slot j):
+//   - the symbol windows, gathered from the padded symbols at an origin
+//     clamped to the sliding windows' range (the plain version's unfold
+//     and gather clamp the origin, not the element):
+//       wx[j] = sx[clamp(xoff - 1 + pad_off, 0, nx - W - 1) + j]
+//       wy[j] = sy[clamp(LY - k + xoff - 1 + pad_off, 0, ny - W - 1) + j]
+//     for j in [0, W]; a symbol outside 0..4 (the sentinel 5) reads
+//     probability 0 from every table;
+//   - the six emission streams: ex = gx[wx[j]], ey = gy[wy[j+1]], em =
+//     gm[wx[j], wy[j+1]] and efx, efy, efm with j and j+1 swapped, each
+//     times fm = 1.f on the band's slots (jlo <= j <= jhi) and 0.f off
+//     them: a multiply, not a select, so a NaN or inf table entry gives
+//     NaN off the band as in the plain version;
+//   - pm: with xs = xoff + j and ys = k - xs, the match, gap x and gap y
+//     bits on band slots of rows whose posteriors pass (kRowValid), ORed
+//     with the row's at-end and bridge bits;
+//   - the cells' symbol pairs wx[j] and wy[j+1].
+// Outputs are bit-equal to the plain version's: table entries times 1 or
+// 0, and integer logic. The row part (frame, shift selects, pm's row bits,
+// start and end rows) stays torch ops on (B, R) tensors.
+//
+// What bounds it on the card: the bytes it writes, 6 x 4 + 3 bytes per
+// slot (1.83 GB at the headline batch: 0.55 ms at 3.35 TB/s); it reads
+// 17 bytes per row and the padded symbols. So each thread takes 4
+// consecutive slots of a row at a time (grid-stride): one 16-byte store
+// per f32 stream and one 4-byte store per int8 stream, so a warp's stores
+// of a stream are contiguous; the row's k, xoff, jlo, jhi are one 16-byte
+// load; the three tables (with the sentinel's zero row and column) sit in
+// shared memory. Widths off a multiple of 4 (or outputs off the 16-byte
+// grid) run the same body with per-slot stores.
+
+constexpr int kPrepThreads = 256;
+constexpr int kPrepBlocks = 8192;  // the grid-stride loop's blocks at most
+constexpr int kSentinel = 5;
+constexpr int kRowValid = 32;  // row bit: the row's posteriors pass (not in pm)
+
+struct PrepArgs {
+  const int8_t* sx;
+  const int8_t* sy;
+  int sx_stride, sy_stride;  // between pairs' symbol rows: 0 when all read one
+  int nx, ny, LY, pad_off;
+  const int4* rows;      // (B * R): {k, xoff, jlo, jhi}
+  const int8_t* bits;    // (B * R): kPmAtEnd | kPmBridge | kRowValid
+  const float* gx;       // (5,) gap x emissions
+  const float* gy;       // (5,)
+  const float* gm;       // (5, 5) match emissions
+  float *ex, *ey, *em, *efx, *efy, *efm;
+  int8_t *pm, *wx, *wy;  // all (B, R, W)
+};
+
+// A symbol as a table index: 0..4, anything else the sentinel's 5.
+__device__ __forceinline__ int sym_index(int s) {
+  return (unsigned)s < (unsigned)kSentinel ? s : kSentinel;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kPrepThreads) wavefront_prep(PrepArgs p, int B, int R, int W) {
+  // gx and gy with the sentinel's 0 (6 each), then gm as 6 x 6 with row
+  // and column 5 zero
+  __shared__ float tab[6 + 6 + 36];
+  for (int i = threadIdx.x; i < 48; i += blockDim.x) {
+    float v = 0.f;
+    if (i < 6) {
+      if (i < 5) v = p.gx[i];
+    } else if (i < 12) {
+      if (i < 11) v = p.gy[i - 6];
+    } else {
+      const int a = (i - 12) / 6, c = (i - 12) % 6;
+      if (a < 5 && c < 5) v = p.gm[a * 5 + c];
+    }
+    tab[i] = v;
+  }
+  __syncthreads();
+  const float* gx = tab;
+  const float* gy = tab + 6;
+  const float* gm = tab + 12;
+
+  const int groups = (W + 3) / 4;  // 4-slot groups per row
+  const long long total = (long long)B * R * groups;
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < total;
+       g += (long long)gridDim.x * blockDim.x) {
+    const long long row = g / groups;
+    const int j0 = (int)(g - row * groups) * 4;
+    const int b = (int)(row / R);
+    const int4 rw = p.rows[row];  // k, xoff, jlo, jhi
+    const int bits = p.bits[row];
+    const int ox = min(max(rw.y - 1 + p.pad_off, 0), p.nx - W - 1);
+    const int oy = min(max(p.LY - rw.x + rw.y - 1 + p.pad_off, 0), p.ny - W - 1);
+    const int8_t* sx = p.sx + (size_t)b * p.sx_stride + ox + j0;
+    const int8_t* sy = p.sy + (size_t)b * p.sy_stride + oy + j0;
+    int wxs[5], wys[5];  // window symbols j0 .. j0 + 4 (the window has W + 1)
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      const bool in = kVec || j0 + q <= W;
+      wxs[q] = in ? sx[q] : kSentinel;
+      wys[q] = in ? sy[q] : kSentinel;
+    }
+    float o[6][4];
+    int8_t opm[4], owx[4], owy[4];
+    const int row_pm = bits & (kPmAtEnd | kPmBridge);
+    const bool row_ok = (bits & kRowValid) != 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + q;
+      const bool slot_ok = j >= rw.z && j <= rw.w;
+      const float fm = slot_ok ? 1.f : 0.f;
+      const int a0 = sym_index(wxs[q]), a1 = sym_index(wxs[q + 1]);
+      const int c0 = sym_index(wys[q]), c1 = sym_index(wys[q + 1]);
+      o[0][q] = gx[a0] * fm;
+      o[1][q] = gy[c1] * fm;
+      o[2][q] = gm[a0 * 6 + c1] * fm;
+      o[3][q] = gx[a1] * fm;
+      o[4][q] = gy[c0] * fm;
+      o[5][q] = gm[a1 * 6 + c0] * fm;
+      const int xs = rw.y + j, ys = rw.x - xs;
+      const bool ok = row_ok && slot_ok;
+      opm[q] = (int8_t)((ok && xs > 0 && ys > 0 ? kPmMatch : 0) | (ok && xs > 0 ? kPmGapX : 0) |
+                        (ok && ys > 0 ? kPmGapY : 0) | row_pm);
+      owx[q] = (int8_t)wxs[q];
+      owy[q] = (int8_t)wys[q + 1];
+    }
+    const size_t at = (size_t)row * W + j0;
+    float* const outs[6] = {p.ex, p.ey, p.em, p.efx, p.efy, p.efm};
+    if constexpr (kVec) {
+#pragma unroll
+      for (int s = 0; s < 6; ++s)
+        *reinterpret_cast<float4*>(outs[s] + at) = make_float4(o[s][0], o[s][1], o[s][2], o[s][3]);
+      *reinterpret_cast<char4*>(p.pm + at) = make_char4(opm[0], opm[1], opm[2], opm[3]);
+      *reinterpret_cast<char4*>(p.wx + at) = make_char4(owx[0], owx[1], owx[2], owx[3]);
+      *reinterpret_cast<char4*>(p.wy + at) = make_char4(owy[0], owy[1], owy[2], owy[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (j0 + q >= W) break;
+#pragma unroll
+        for (int s = 0; s < 6; ++s) outs[s][at + q] = o[s][q];
+        p.pm[at + q] = opm[q];
+        p.wx[at + q] = owx[q];
+        p.wy[at + q] = owy[q];
+      }
+    }
+  }
+}
+
+int prep_entry(const PrepArgs& p, int B, int R, int W, void* stream) {
+  if (B < 0 || R < 0 || W < 1 || p.nx < W + 1 || p.ny < W + 1 || p.sx_stride < 0 ||
+      p.sy_stride < 0 || reinterpret_cast<uintptr_t>(p.rows) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long groups = (long long)B * R * ((W + 3) / 4);
+  if (groups == 0) return 0;
+  // 16-byte stores of the f32 streams and 4-byte stores of the int8 ones
+  bool vec = W % 4 == 0;
+  for (const void* q : {(const void*)p.ex, (const void*)p.ey, (const void*)p.em,
+                        (const void*)p.efx, (const void*)p.efy, (const void*)p.efm})
+    vec = vec && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  for (const void* q : {(const void*)p.pm, (const void*)p.wx, (const void*)p.wy})
+    vec = vec && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  const int blocks =
+      (int)std::min<long long>((groups + kPrepThreads - 1) / kPrepThreads, kPrepBlocks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    wavefront_prep<true><<<blocks, kPrepThreads, 0, st>>>(p, B, R, W);
+  else
+    wavefront_prep<false><<<blocks, kPrepThreads, 0, st>>>(p, B, R, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points (loaded with ctypes). Each returns the cudaError_t of
@@ -3122,6 +3304,24 @@ int cpecan_wavefront_set_cluster_limit(int cluster) {
   const int before = g_cluster_limit;
   g_cluster_limit = cluster;
   return before;
+}
+
+// The stream prep's slot part (wavefront_prep): sx, sy int8 padded
+// symbols with their pair strides (0: one pair for every row) and
+// lengths; rows (B, R, 4) int32 {k, xoff, jlo, jhi}; bits (B, R) int8;
+// the gap x, gap y (5,) and match (5, 5) emission tables on the device;
+// the outputs ex, ey, em, efx, efy, efm (B, R, W) f32 and pm, wx, wy (B, R,
+// W) int8.
+int cpecan_wavefront_prep(const int8_t* sx, const int8_t* sy, int sx_stride, int sy_stride,
+                          int nx, int ny, int LY, int pad_off, const int32_t* rows,
+                          const int8_t* bits, const float* gx, const float* gy, const float* gm,
+                          float* ex, float* ey, float* em, float* efx, float* efy, float* efm,
+                          int8_t* pm, int8_t* wx, int8_t* wy, int B, int R, int W,
+                          void* stream) {
+  const PrepArgs p = {sx, sy, sx_stride, sy_stride, nx, ny, LY, pad_off,
+                      reinterpret_cast<const int4*>(rows), bits, gx, gy, gm,
+                      ex, ey, em, efx, efy, efm, pm, wx, wy};
+  return prep_entry(p, B, R, W, stream);
 }
 
 const char* cpecan_cuda_error_string(int err) {

@@ -45,6 +45,9 @@ _SIGNATURES = {  # (S, pointers..., B, R, W, k0, stream)
     "cpecan_wavefront_back_wide_plan": [_I, _I, _I, _P],
     "cpecan_wavefront_fwd_wide_plan": [_I, _I, _P],  # (S, W, int[5] out)
     "cpecan_wavefront_set_cluster_limit": [_I],
+    # (sx, sy, sx and sy pair strides, their lengths, LY, pad_off, rows,
+    # bits, the three emission tables, the 9 streams, B, R, W, stream)
+    "cpecan_wavefront_prep": [_P] * 2 + [_I] * 6 + [_P] * 14 + [_I] * 3 + [_P],
 }
 
 

@@ -90,10 +90,14 @@ def fb_pass_segmented(hmm, seq_x_codes, seq_y_codes, offsets: np.ndarray,
         prob, torch.tensor([ragged_right], device=dev),
         ((js >= fr["jlo"][L]) & (js <= fr["jhi"][L])).float()[None])
 
-    def streams(k0):
+    # each window's first diagonal, made on the device once (a host
+    # tensor per window would be a pageable copy that waits for the queue)
+    starts = torch.arange(1, 1 + nW * K, K, device=dev)
+
+    def streams(w):
         return _wf.precompute_window(
-            hmm, sx_pad, sy_pad, fr, int(ly), L,
-            torch.tensor([k0], device=dev), K, W, K + W + 1)
+            hmm, sx_pad, sy_pad, fr, int(ly), L, starts[w:w + 1], K, W,
+            K + W + 1)
 
     def forward(st, carry, k0):
         return _wf.fwd(t, st["ex"], st["ey"], st["em"], st["a"], st["b1"],
@@ -108,7 +112,7 @@ def fb_pass_segmented(hmm, seq_x_codes, seq_y_codes, offsets: np.ndarray,
     for w in range(nW):
         k0 = 1 + w * K
         checkpoints.append(carry)
-        F, _, mf_w, carry = forward(streams(k0), carry, k0)
+        F, _, mf_w, carry = forward(streams(w), carry, k0)
         mf_parts.append(mf_w[0])
         if k0 <= L < k0 + K:
             end_dot = torch.log(torch.sum(F[0, L - k0] * end_row[0]))
@@ -137,7 +141,7 @@ def fb_pass_segmented(hmm, seq_x_codes, seq_y_codes, offsets: np.ndarray,
         thr = max(float(threshold), 1e-9)
     for w in range(nW - 1, -1, -1):
         k0 = 1 + w * K
-        st = streams(k0)
+        st = streams(w)
         F, bv, _, _ = forward(st, checkpoints[w], k0)
         back = (t, st["efx"], st["efy"], st["efm"], st["em"])
         masks = (st["abw"], st["c1"], st["c0"], st["bm1"], st["bm0"])

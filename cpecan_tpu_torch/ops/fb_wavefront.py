@@ -17,12 +17,23 @@ kernels (csrc/wavefront.cu) replace its Pallas kernels:
    F_prev[f] * T_c * e_c * B_k[t] / total_k into trans[f, t] and, through
    the cell's symbol pair, into emis[t, a, b]; per-pair outputs.
 
+A fourth kernel takes the stream prep, which the JAX package traces into
+its jit and leaves to XLA (``_precompute_one``, no Pallas kernel):
+
+ * ``streams`` <- the slot part of ``_precompute_one``: the kernel
+   ``wavefront_prep`` writes every (B, R, W) stream of the three kernels
+   (masked emissions, pm, the cells' symbol pairs) in one pass from the
+   padded symbols and a few quantities per row. The row part (frame,
+   shift selects, pm's row bits, F0, end rows) stays torch ops on (B, R)
+   tensors in ``precompute`` and ``precompute_window``.
+
 Each wrapper runs its plain PyTorch version (``fwd_reference`` /
-``bwd_reference`` / ``exp_reference``) for a CPU tensor, and launches its
-kernel or raises for a CUDA tensor (``kernel_route`` picks the entry
-point: the shared-memory variants up to ``MAX_KERNEL_WIDTH`` band slots,
-the wide variants above). The plain versions follow the Pallas bodies
-line for line in arithmetic and serve as the kernels' oracle.
+``bwd_reference`` / ``exp_reference`` / ``streams_reference``) for a CPU
+tensor, and launches its kernel or raises for a CUDA tensor
+(``kernel_route`` picks the entry point: the shared-memory variants up
+to ``MAX_KERNEL_WIDTH`` band slots, the wide variants above). The plain
+versions follow the Pallas bodies (and ``_precompute_one``) line for
+line in arithmetic and serve as the kernels' oracle.
 
 Layout is batch-major: streams (B, R, W) with R = P+1 diagonals and W
 band slots; the forward intermediate F is (B, R, S, W); the row-constant
@@ -62,6 +73,9 @@ _PM_GAPX = 2
 _PM_GAPY = 4
 _PM_ATEND = 8  # k == L (broadcast over slots)
 _PM_BRIDGE = 16  # 1 <= k < L (broadcast over slots)
+# the row bit (row_bits, not in pm) of the rows whose posteriors pm lets
+# through
+_ROW_VALID = 32
 
 # Widest band of the kernels' shared-memory variants (fwd/bwd 1024 threads
 # x 4 slots per thread, exp 512 x 8); wider bands run the wide variants:
@@ -91,10 +105,11 @@ KERNEL_NZ = _kernels.kernel_structures()
 # wide_bwd or wide_exp where that kernel is a wide variant, and of those
 # one more to cluster_fwd, cluster_bwd or cluster_exp where the launch
 # plan (``fwd_wide_plan``, ``back_wide_plan``) ran the cluster variant.
+# prep counts the stream prep's kernel (``streams``) at every site.
 LAUNCHES = {"fwd": 0, "bwd": 0, "exp": 0, "seg_fwd": 0, "seg_bwd": 0,
             "seg_exp": 0, "par_fwd": 0, "par_bwd": 0, "wide_fwd": 0,
             "wide_bwd": 0, "wide_exp": 0, "cluster_fwd": 0, "cluster_bwd": 0,
-            "cluster_exp": 0}
+            "cluster_exp": 0, "prep": 0}
 
 
 def reset_launch_counts() -> None:
@@ -145,6 +160,10 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
     y at slot j; the sentinel off the sequences), which the expectation
     pass bins its emission counts by; F0 and end_row (B, S, W) f32;
     m0log (B,); xoff/jlo/jhi (B, P+1) int64; L (B,) int64.
+
+    The row part runs here as torch ops on (B, P+1) tensors; the slot
+    part, every (B, P+1, W) output, is ``streams`` (the kernel
+    ``wavefront_prep`` for CUDA tensors).
     """
     dev = offsets.device
     W = int(width)
@@ -160,65 +179,88 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
 
     LX = sx.shape[1]
     LY = sy.shape[1]
-    sent = torch.tensor(_fb._SENTINEL, dtype=torch.int8, device=dev)
     sx_s = torch.where(torch.arange(LX, device=dev) < lx[:, None],
-                       sx.to(torch.int8), sent)
+                       sx.to(torch.int8), _fb._SENTINEL)
     sy_s = torch.where(torch.arange(LY, device=dev) < ly[:, None],
-                       sy.to(torch.int8), sent)
+                       sy.to(torch.int8), _fb._SENTINEL)
     pad = torch.full((B, W + 1), _fb._SENTINEL, dtype=torch.int8,
                      device=dev)
     sx_pad = torch.cat([pad, sx_s, pad], dim=1)
     sy_pad = torch.cat([pad, torch.flip(sy_s, dims=[1]), pad], dim=1)
-    wx, wy = _fb._symbol_windows(sx_pad, sy_pad, xoff, LY, W)
-
-    js = torch.arange(W, device=dev)
     ks = torch.arange(P1, device=dev)
-    slot_ok = (js >= jlo[..., None]) & (js <= jhi[..., None])
+    Lc = L[:, None]
+    out = streams(prob, sx_pad, sy_pad, LY, W + 1, ks, xoff, jlo, jhi,
+                  row_bits((ks >= 1) & (ks <= Lc), ks == Lc,
+                           (ks >= 1) & (ks < Lc)), W)
+
     d_km1 = torch.cat([delta[:, :1], delta[:, :-1]], dim=1)
     dmid = delta + d_km1 - 1
     delta_pad = torch.cat([delta, delta.new_zeros(B, 2)], dim=1)
     d1 = delta_pad[:, 1:P + 2]
     dsum2 = d1 + delta_pad[:, 2:P + 3]
     dmid1 = torch.cat([dmid[:, 1:], dmid.new_zeros(B, 1)], dim=1)
-    xs = xoff[..., None] + js
-    out = _streams(prob, wx, wy, slot_ok, xs, ks[:, None] - xs,
-                   (ks >= 1) & (ks <= L[:, None]), ks == L[:, None],
-                   (ks >= 1) & (ks < L[:, None]), delta, dmid, d1, dsum2,
-                   dmid1)
+    out.update(row_selects(delta, dmid, d1, dsum2, dmid1))
     out["F0"], out["m0log"] = start_rows(prob, ragged_left, S, W)
-    slot_ok_L = slot_ok[torch.arange(B, device=dev), L.clamp(0, P)]
+    bi, rowL = torch.arange(B, device=dev), L.clamp(0, P)
+    js = torch.arange(W, device=dev)
+    slot_ok_L = ((js >= jlo[bi, rowL][:, None])
+                 & (js <= jhi[bi, rowL][:, None]))
     out["end_row"] = end_rows(prob, ragged_right, slot_ok_L.float())
     out.update(xoff=xoff, jlo=jlo, jhi=jhi, L=L)
     return out
 
 
-def _streams(prob, wx, wy, slot_ok, xs, ys, valid_rows, at_end, bridge,
-             delta, dmid, d1, dsum2, dmid1) -> dict:
-    """The kernels' streams from per-row frame quantities: emissions
-    masked to the band's slots, the row shift selects, the pm bitfield
-    and the cells' symbol pairs. wx/wy (..., W+1) symbol windows; slot_ok,
-    xs, ys (..., W); the rest per row: valid_rows (posteriors let
-    through), at_end (k == L), bridge (1 <= k < L), the x-frame steps
-    delta, dmid = d_k + d_{k-1} - 1, d1 = d_{k+1}, dsum2 = d_{k+1} +
-    d_{k+2} and dmid1 (dmid of row k+1)."""
-    W = slot_ok.shape[-1]
+def row_selects(delta, dmid, d1, dsum2, dmid1) -> dict:
+    """The kernels' row-constant shift selects, (..., R) int8, from the
+    x-frame steps: delta, dmid = d_k + d_{k-1} - 1, d1 = d_{k+1}, dsum2 =
+    d_{k+1} + d_{k+2} and dmid1 (dmid of row k+1)."""
+    i8 = lambda cond: cond.to(torch.int8)
+    return {"a": i8(delta == 1), "b1": i8(dmid == 1), "b0": i8(dmid == 0),
+            "abw": i8(d1 == 1), "c1": i8(dsum2 == 2), "c0": i8(dsum2 == 1),
+            "bm1": i8(dmid1 == 1), "bm0": i8(dmid1 == 0)}
+
+
+def row_bits(valid_rows, at_end, bridge):
+    """pm's row-constant bits, (..., R) int8: _PM_ATEND at k == L
+    (``at_end``), _PM_BRIDGE for 1 <= k < L (``bridge``), and _ROW_VALID
+    (not a pm bit) on the rows whose posteriors pm lets through
+    (``valid_rows``)."""
+    i8 = torch.int8
+    return (valid_rows.to(i8) * _ROW_VALID | at_end.to(i8) * _PM_ATEND
+            | bridge.to(i8) * _PM_BRIDGE)
+
+
+def streams_reference(prob, sx_pad, sy_pad, LY: int, pad_off: int, ks,
+                      xoff, jlo, jhi, bits, width: int) -> dict:
+    """The slot part of the stream prep in plain PyTorch, the oracle of
+    the kernel ``wavefront_prep``: per (row, slot) the emissions masked
+    to the band's slots, the pm bitfield and the cells' symbol pairs.
+
+    sx_pad, sy_pad: (B or 1, pad_off + n + pad_off) int8 symbols (sy
+    reversed) padded with pad_off sentinels; one row serves every row of
+    the batch (the windows of one long pair). LY: sy's unpadded length.
+    ks (row diagonals), xoff (window origins), jlo, jhi (band slot
+    bounds): (B, R) int64, ks may broadcast; bits (B, R) int8 from
+    ``row_bits``. Returns ex/ey/em/efx/efy/efm (B, R, W) f32 and
+    pm/wx/wy (B, R, W) int8, as ``precompute`` returns them."""
+    W = int(width)
+    wx, wy = _fb._symbol_windows(sx_pad, sy_pad, xoff, LY, W, ks=ks,
+                                 pad_off=pad_off)
+    js = torch.arange(W, device=xoff.device)
+    slot_ok = (js >= jlo[..., None]) & (js <= jhi[..., None])
+    xs = xoff[..., None] + js
+    ys = ks[..., None] - xs
     fm = slot_ok.to(torch.float32)
     e_x, e_y, e_m = _fb._emissions(prob, wx[..., :W], wy[..., 1:])
     ef_x, ef_y, ef_m = _fb._emissions(prob, wx[..., 1:], wy[..., :W])
-    valid_k = valid_rows[..., None] & slot_ok
-    row_bits = (torch.where(at_end, _PM_ATEND, 0)
-                | torch.where(bridge, _PM_BRIDGE, 0))
+    valid_k = ((bits & _ROW_VALID) != 0)[..., None] & slot_ok
     pm = (torch.where(valid_k & (xs > 0) & (ys > 0), _PM_MATCH, 0)
           | torch.where(valid_k & (xs > 0), _PM_GAPX, 0)
           | torch.where(valid_k & (ys > 0), _PM_GAPY, 0)
-          | row_bits[..., None])
-    i8 = lambda cond: cond.to(torch.int8)
+          | (bits & (_PM_ATEND | _PM_BRIDGE))[..., None])
     return {
         "ex": e_x * fm, "ey": e_y * fm, "em": e_m * fm,
         "efx": ef_x * fm, "efy": ef_y * fm, "efm": ef_m * fm,
-        "a": i8(delta == 1), "b1": i8(dmid == 1), "b0": i8(dmid == 0),
-        "abw": i8(d1 == 1), "c1": i8(dsum2 == 2), "c0": i8(dsum2 == 1),
-        "bm1": i8(dmid1 == 1), "bm0": i8(dmid1 == 0),
         "pm": pm.to(torch.int8),
         "wx": wx[..., :W].contiguous(), "wy": wy[..., 1:].contiguous(),
     }
@@ -279,18 +321,14 @@ def precompute_window(hmm, sx_pad, sy_pad, frame: dict, LY: int, L: int,
     delta, d_km1, d1, d2 = at("delta"), at("delta", -1), at("delta", 1), \
         at("delta", 2)
     jlo, jhi = at("jlo") - base, at("jhi") - base
-
-    wx, wy = _fb._symbol_windows(sx_pad, sy_pad, xoff, LY, W, ks=ks,
-                                 pad_off=pad_off)
-    js = torch.arange(W, device=dev)
-    slot_ok = (js >= jlo[..., None]) & (js <= jhi[..., None])
-    xs = xoff[..., None] + js
     lo, hi = ((ks[:, :1], ks[:, -1:] + 1) if emit is None
               else (emit[:, :1], emit[:, 1:]))
-    return _streams(prob, wx, wy, slot_ok, xs, ks[..., None] - xs,
-                    (ks >= lo) & (ks < hi) & (ks >= 1) & (ks <= L), ks == L,
-                    (ks >= 1) & (ks < L), delta, delta + d_km1 - 1, d1,
-                    d1 + d2, d1 + delta - 1)
+    out = streams(prob, sx_pad, sy_pad, LY, pad_off, ks, xoff, jlo, jhi,
+                  row_bits((ks >= lo) & (ks < hi) & (ks >= 1) & (ks <= L),
+                           ks == L, (ks >= 1) & (ks < L)), W)
+    out.update(row_selects(delta, delta + d_km1 - 1, d1, d1 + d2,
+                           d1 + delta - 1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -611,12 +649,13 @@ def _on_card(x) -> bool:
     return x.device.type == "cuda"
 
 
-def _check_launch(name: str, S: int, W: int, nz, tensors: dict) -> None:
-    """Structure, width, device, dtype, shape and contiguity checks before
-    a launch; ``tensors`` maps a name to (tensor, dtype, shape)."""
-    if S not in KERNEL_NZ:
+def _check_launch(name: str, S, W: int, nz, tensors: dict) -> None:
+    """Structure (not for S None: a kernel without one), width, device,
+    dtype, shape and contiguity checks before a launch; ``tensors`` maps
+    a name to (tensor, dtype, shape)."""
+    if S is not None and S not in KERNEL_NZ:
         raise ValueError(f"{name}: kernels support S in (3, 5), got {S}")
-    extra = set(nz) - set(KERNEL_NZ[S])
+    extra = set(nz) - set(KERNEL_NZ[S]) if S is not None else ()
     if extra:
         raise ValueError(
             f"{name}: transitions {sorted(extra)} are outside the kernels' "
@@ -640,15 +679,16 @@ def _check_launch(name: str, S: int, W: int, nz, tensors: dict) -> None:
 
 
 def kernel_route(kernel: str, device, W: int):
-    """The C entry point that a launch of ``kernel`` ("fwd", "bwd" or
-    "exp") at band width W takes for tensors on ``device``: None for the
-    CPU (the wrapper runs the plain version), else the shared-memory
+    """The C entry point that a launch of ``kernel`` ("fwd", "bwd", "exp"
+    or "prep") at band width W takes for tensors on ``device``: None for
+    the CPU (the wrapper runs the plain version), else the shared-memory
     variant's entry point up to MAX_KERNEL_WIDTH and the wide variant's
-    above. The shared-memory entry points pick their own launch plan
-    (``fwd_plan``, ``bwd_plan``, ``exp_plan``)."""
+    above (prep has one entry point at every width). The shared-memory
+    entry points pick their own launch plan (``fwd_plan``, ``bwd_plan``,
+    ``exp_plan``)."""
     if device.type == "cpu":
         return None
-    wide = "_wide" if W > MAX_KERNEL_WIDTH else ""
+    wide = "_wide" if W > MAX_KERNEL_WIDTH and kernel != "prep" else ""
     return f"cpecan_wavefront_{kernel}{wide}"
 
 
@@ -669,6 +709,49 @@ def _host_transitions(t, S: int):
 
 
 _NULL = ctypes.c_void_p(None)
+
+
+def streams(prob, sx_pad, sy_pad, LY: int, pad_off: int, ks, xoff, jlo, jhi,
+            bits, width: int) -> dict:
+    """The slot part of the stream prep: ``streams_reference`` for CPU
+    tensors, the CUDA kernel ``wavefront_prep`` for CUDA tensors. Same
+    contract as ``streams_reference``; ``prob`` holds the probability-
+    space tables on the tensors' device (``_fb._prob_params``), which the
+    kernel reads there (no copy to the host)."""
+    W = int(width)
+    entry = kernel_route("prep", xoff.device, W)
+    if entry is None:
+        return streams_reference(prob, sx_pad, sy_pad, LY, pad_off, ks, xoff,
+                                 jlo, jhi, bits, W)
+    B, R = xoff.shape
+    f32, i8 = torch.float32, torch.int8
+    nx, ny = sx_pad.shape[1], sy_pad.shape[1]
+    for key, x in (("sx_pad", sx_pad), ("sy_pad", sy_pad)):
+        if x.dim() != 2 or x.shape[0] not in (1, B) or x.shape[1] < W + 1:
+            raise ValueError(f"prep: {key} has shape {tuple(x.shape)}, "
+                             f"expected (1 or {B}, >= {W + 1})")
+    rows = torch.stack([ks.expand(B, R), xoff, jlo, jhi], dim=-1).to(torch.int32)
+    _check_launch("prep", None, W, (), {
+        "sx_pad": (sx_pad, i8, tuple(sx_pad.shape)),
+        "sy_pad": (sy_pad, i8, tuple(sy_pad.shape)),
+        "rows": (rows, torch.int32, (B, R, 4)), "bits": (bits, i8, (B, R)),
+        "em_gap_x": (prob["em_gap_x"], f32, (5,)),
+        "em_gap_y": (prob["em_gap_y"], f32, (5,)),
+        "em_match": (prob["em_match"], f32, (5, 5))})
+    dev = xoff.device
+    out = {k: torch.empty(B, R, W, dtype=f32, device=dev)
+           for k in ("ex", "ey", "em", "efx", "efy", "efm")}
+    out.update({k: torch.empty(B, R, W, dtype=i8, device=dev)
+                for k in ("pm", "wx", "wy")})
+    if B * R == 0:
+        return out
+    stride = lambda x: 0 if x.shape[0] == 1 else x.shape[1]
+    _launch("prep", entry, dev, _ptr(sx_pad), _ptr(sy_pad), stride(sx_pad),
+            stride(sy_pad), nx, ny, int(LY), int(pad_off), _ptr(rows),
+            _ptr(bits), _ptr(prob["em_gap_x"]), _ptr(prob["em_gap_y"]),
+            _ptr(prob["em_match"]), *(_ptr(v) for v in out.values()), B, R, W)
+    LAUNCHES["prep"] += 1
+    return out
 
 
 def _fwd_carry_specs(carry, B, S, W) -> dict:
