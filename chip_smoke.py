@@ -9,12 +9,16 @@ Phases (any failure raises, so the exit code is non-zero):
   2. build: compile the CUDA kernels from cpecan_tpu_torch/csrc with nvcc
      (four parts at once);
   3. kernels: on four batches (headline, dense anchors, 3-state ragged,
-     full band W >= 1024) run the prep kernel (wavefront_prep, the
-     stream prep's slot part), the forward and backward kernels and their
-     plain PyTorch versions on the same card tensors, check the
-     tolerances (the prep bit for bit) and time the kernels per call
-     (the plain versions' one call at the headline batch; the prep's
-     plain version on every batch); on the headline and the 3-state
+     full band W >= 1024) run the prep's kernels (wavefront_rows, the
+     stream prep's row part, and wavefront_prep, its slot part), the
+     forward and backward kernels and their plain PyTorch versions on the
+     same card tensors, check the tolerances (the prep's bit for bit) and
+     time the kernels per call (the plain versions' one call at the
+     headline batch; the prep's plain versions on every batch; the prep's
+     kernels timed on the device alone, behind a spin), and, in a fresh
+     process, count one precompute's and one precompute_window's CUDA
+     launches with torch.profiler (at most 2 each); on the headline and
+     the 3-state
      batch the same for the expectation kernel, and on a full band of
      2.5 kb pairs with its emission bins in device scratch (W > 2048);
      then the forward and the backward kernel across band widths 32-4096
@@ -26,7 +30,7 @@ Phases (any failure raises, so the exit code is non-zero):
   4. realign main path: cpecan_tpu_torch.cli.realign.main on 1024
      generated 1 kb record pairs (default decode) and 128 of them with
      --mea, with every kernel's launch count reset before and read after
-     (fwd, bwd and the prep must have run);
+     (fwd, bwd and the prep's two kernels must have run);
   5. card against CPU: realign.main with --device cpu (the kernels' plain
      versions) on the first 8 records, default and --mea, must give the
      card run's cigars; batch_posteriors at the main path's parameters on
@@ -47,8 +51,8 @@ Phases (any failure raises, so the exit code is non-zero):
      modes: the kernels with carries, k0 phase and F halo) and the
      burn-in-parallel engine, each through the kernels and again through
      their plain versions on the same card tensors (every window batch's
-     prep bit for bit); the exact engine's scale streams and posteriors
-     against the two-pass kernels';
+     prep, both kernels, bit for bit); the exact engine's scale streams
+     and posteriors against the two-pass kernels';
   9. long pair: the long_500kb configuration (bench.py:616-622) through
      pairwise.get_aligned_pairs (the parallel engine), with wall and host
      seconds, windows, launches and sensitivity/specificity against the
@@ -68,8 +72,9 @@ Phases (any failure raises, so the exit code is non-zero):
  12. wide bands (W > 4096, the kernels' wide variants): first F2 and F4,
      every kernel (shared-memory, cluster and global-scratch) against its
      plain version on backward totals of 0, inf and NaN and on rows whose
-     raw values hold a NaN (scale 1), and the prep on a model with NaN and
-     inf emissions (NaN off the band, bit for bit as the plain version,
+     raw values hold a NaN (scale 1), and the prep's two kernels on a
+     model with NaN and inf emissions, a NaN start and an inf end
+     probability (NaN off the band, bit for bit as the plain versions,
      batch and windows); the batch path's three kernels on a
      full band of 1 kb pairs padded out to W=4352 and of 500 bp pairs
      padded to an off-grid 8200 against their plain versions (fwd bit for
@@ -120,6 +125,7 @@ cpecan_tpu_torch. Test data is made with numpy from fixed seeds.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -325,14 +331,14 @@ def _batches():
 
 @contextlib.contextmanager
 def _plain_versions(times=None):
-    """Route the kernel wrappers (fwd, bwd, exp and the prep's streams),
-    for every caller, to their plain versions (which take the same
-    arguments but the launch-count site).
+    """Route the kernel wrappers (fwd, bwd, exp and the prep's rows and
+    streams), for every caller, to their plain versions (which take the
+    same arguments but the launch-count site).
     With a dict ``times``, each call's CUDA-event ms is appended to
     times[kernel]."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
-    saved = wf.fwd, wf.bwd, wf.exp, wf.streams
+    saved = wf.fwd, wf.bwd, wf.exp, wf.streams, wf.prep_rows, wf.prep_rows_window
 
     def plain(ref, kind):
         def call(*a, site=None, **kw):
@@ -343,13 +349,17 @@ def _plain_versions(times=None):
             return out
         return call
 
-    wf.fwd, wf.bwd, wf.exp, wf.streams = (
+    (wf.fwd, wf.bwd, wf.exp, wf.streams, wf.prep_rows,
+     wf.prep_rows_window) = (
         plain(wf.fwd_reference, "fwd"), plain(wf.bwd_reference, "bwd"),
-        plain(wf.exp_reference, "exp"), plain(wf.streams_reference, "prep"))
+        plain(wf.exp_reference, "exp"), plain(wf.streams_reference, "prep"),
+        plain(wf.rows_reference, "rows"),
+        plain(wf.rows_window_reference, "rows"))
     try:
         yield
     finally:
-        wf.fwd, wf.bwd, wf.exp, wf.streams = saved
+        (wf.fwd, wf.bwd, wf.exp, wf.streams, wf.prep_rows,
+         wf.prep_rows_window) = saved
 
 
 def _median_ms(fn, reps):
@@ -478,31 +488,46 @@ PREP_KEYS = ("ex", "ey", "em", "efx", "efy", "efm", "pm", "wx", "wy")
 
 @contextlib.contextmanager
 def _capture_prep(keep_all=False, windows=False):
-    """Keep the arguments of the prep's streams calls while the block runs
-    (every call goes through): all of them, or the largest by slots; with
-    ``windows``, only precompute_window's (their row diagonals ks are
-    (n, rows), the batch path's one row). Yields a list of argument
-    tuples."""
+    """Keep the arguments of the prep's two kernel calls, the row part
+    (prep_rows or prep_rows_window) and the streams call after it, while
+    the block runs (every call goes through): all of them, or the largest
+    by slots; with ``windows``, only precompute_window's. Yields a list of
+    (rows call, streams arguments), a rows call being (form, args,
+    kwargs) with form "batch" or "window"."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
-    saved = wf.streams
-    kept = []
+    saved = wf.streams, wf.prep_rows, wf.prep_rows_window
+    kept, last = [], []
+
+    def rows_call(form, fn):
+        def call(*args, **kwargs):
+            last[:] = [(form, args, kwargs)]
+            return fn(*args, **kwargs)
+        return call
 
     def call(*args):
-        out = saved(*args)
-        if windows and args[5].dim() != 2:
+        out = saved[0](*args)
+        rows = last.pop()
+        if windows and rows[0] != "window":
             return out
         if keep_all or not kept or out["ex"].numel() > kept[0][1]:
-            entry = (args, out["ex"].numel())
+            entry = ((rows, args), out["ex"].numel())
             kept[:] = kept + [entry] if keep_all else [entry]
         return out
 
     wf.streams = call
+    wf.prep_rows = rows_call("batch", saved[1])
+    wf.prep_rows_window = rows_call("window", saved[2])
     try:
         yield kept
     finally:
-        wf.streams = saved
-        kept[:] = [args for args, _ in kept]
+        wf.streams, wf.prep_rows, wf.prep_rows_window = saved
+        kept[:] = [entry for entry, _ in kept]
+
+
+def _bytes_bound(byts, ops):
+    t_bytes, t_ops = byts / PEAK_BYTES, ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _prep_bound(args):
@@ -511,20 +536,50 @@ def _prep_bound(args):
     a row, the three tables) and its 9 outputs written once (6 f32 and 3
     int8 per slot), over HBM's rate; its fp32 operations (the 6 masking
     multiplies per slot) over the fp32 peak."""
-    sx_pad, sy_pad, B, R = args[1], args[2], *args[6].shape
-    W = args[10]
-    slots = B * R * W
-    byts = (sx_pad.numel() + sy_pad.numel() + 17 * B * R + 4 * 35
-            + (6 * 4 + 3) * slots)
-    t_bytes, t_ops = byts / PEAK_BYTES, 6 * slots / PEAK_F32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    sx_pad, sy_pad, (B, R) = args[1], args[2], args[5].shape[:2]
+    slots = B * R * args[7]
+    return _bytes_bound(sx_pad.numel() + sy_pad.numel() + 17 * B * R + 4 * 35
+                        + (6 * 4 + 3) * slots, 6 * slots)
 
 
-def _same_streams(got, want, what):
-    """The kernel's streams equal the plain version's bit for bit, NaN
+def _rows_bound(call):
+    """(bound_ms, bound_by) of one row-kernel call, counted as _prep_bound
+    counts: its inputs read once and its outputs written once over HBM's
+    rate, its fp32 operations over the fp32 peak. Batch form: the symbols,
+    band, lengths and flags at their element sizes and the model's
+    buffers; out the row tensor (16 bytes a row), bits and 8 selects (9),
+    xoff/jlo/jhi (24), the padded symbols, L, m0log, F0 and end_row (S x
+    W each), the 35 tables; operations S x W divides and multiplies and
+    the 35 + 3S exp and log. Window form: the frame rows the windows read
+    (their R rows and 3 neighbours, 4 arrays of 8 bytes, at most the
+    frame), starts, base, emit; out rows, bits, selects and tables."""
+    form, args, kw = call
+    hmm = args[0]
+    S = hmm.state_number
+    model = 4 * (35 + 4 * S)
+    if form == "batch":
+        sx, sy, offsets, widths, lx, ly, rl, rr, W = args[1:]
+        B, R = offsets.shape
+        ins = sum(x.numel() * x.element_size()
+                  for x in (sx, sy, offsets, widths, lx, ly, rl, rr))
+        outs = (R * B * (16 + 9 + 24) + sx.numel() + sy.numel()
+                + 4 * B * (W + 1) + 8 * B + 4 * B + 2 * 4 * B * S * W + 4 * 35)
+        return _bytes_bound(ins + model + outs, 2 * B * S * W + 35 + 3 * S * B)
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    a = inspect.signature(wf.rows_window_reference).bind(*args, **kw).arguments
+    n, R = a["starts"].shape[0], a["rows"]
+    rows_read = min(n * (R + 3), a["frame"]["xoff"].shape[0])
+    ins = 32 * rows_read + 8 * n * (1 + (a.get("base") is not None)
+                                    + 2 * (a.get("emit") is not None))
+    return _bytes_bound(ins + 4 * 35 + n * R * (16 + 9) + 4 * 35, 35)
+
+
+def _same_streams(got, want, what, keys=PREP_KEYS):
+    """The kernel's outputs equal the plain version's bit for bit, NaN
     where the plain version has NaN. Returns the max abs error (0)."""
     err = 0.0
-    for k in PREP_KEYS:
+    for k in keys:
         g, w_ = got[k], want[k]
         if g.dtype != w_.dtype or g.shape != w_.shape:
             raise AssertionError(f"{what} {k}: {g.dtype} {tuple(g.shape)}, plain "
@@ -542,28 +597,182 @@ def _same_streams(got, want, what):
     return err
 
 
-def _check_prep(args, what, card, reps=10):
-    """wavefront_prep (the streams wrapper) against streams_reference on the
-    same card tensors, bit for bit; with reps, the CUDA-event median of
-    ``reps`` kernel calls, the plain version's one call and the bound.
-    Returns {"err", "ms", "plain_ms", "bound"} (times None without reps)."""
+def _check_rows(call, what, card, reps=10):
+    """wavefront_rows (prep_rows or prep_rows_window) against its plain
+    version on the same card tensors, bit for bit on every output; with
+    reps, the CUDA-event median of ``reps`` kernel calls, the plain
+    version's one call and the bound. Returns {"err", "ms", "plain_ms",
+    "bound"} (times None without reps)."""
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
+    form, args, kw = call
+    kernel, plain = ((wf.prep_rows, wf.rows_reference) if form == "batch"
+                     else (wf.prep_rows_window, wf.rows_window_reference))
+    got = kernel(*args, **kw)
+    want, plain_ms = _timed(lambda: plain(*args, **kw))
+    err = _same_streams(got, want, f"rows at {what}", keys=tuple(want))
+    del got, want
+    out = {"err": err, "ms": None, "plain_ms": None, "bound": _rows_bound(call)}
+    if reps:
+        out["ms"] = _device_ms(lambda: kernel(*args, **kw), reps)
+        call_ms = _median_ms(lambda: kernel(*args, **kw), reps)
+        out["plain_ms"] = plain_ms
+        bms, by = out["bound"]
+        B, R = (args[3].shape if form == "batch" else (args[3].shape[0], args[4]))
+        log(f"  rows ({form}) at {what}: B={B} R={R}; kernel {out['ms']:.4f} ms "
+            f"(the wrapper's call with its host time {call_ms:.4f}), plain "
+            f"{plain_ms:.2f} ms, bound {bms:.5f} ms ({by}), "
+            f"{100 * bms / out['ms']:.1f}% of the bound; bit-equal ({card})")
+    return out
+
+
+def _check_prep(entry, what, card, reps=10, sites=None):
+    """wavefront_prep (the streams wrapper) against streams_reference, and
+    wavefront_rows against its plain version (``_check_rows``), on the
+    same card tensors, bit for bit; with reps, the CUDA-event median of
+    ``reps`` kernel calls, the plain version's one call and the bound of
+    each. Returns {"err", "ms", "plain_ms", "bound", "rows"} (times None
+    without reps), "rows" the row kernel's; with ``sites``, both errors
+    are folded into sites["prep"] and sites["rows"]."""
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    rows_call, args = entry
     got = wf.streams(*args)
     want, plain_ms = _timed(lambda: wf.streams_reference(*args))
     err = _same_streams(got, want, f"prep at {what}")
     del got, want
-    B, R = args[6].shape
-    W = args[10]
+    B, R = args[5].shape[:2]
+    W = args[7]
     out = {"err": err, "ms": None, "plain_ms": None, "bound": _prep_bound(args)}
     if reps:
-        out["ms"] = _median_ms(lambda: wf.streams(*args), reps)
+        out["ms"] = _device_ms(lambda: wf.streams(*args), reps)
+        call_ms = _median_ms(lambda: wf.streams(*args), reps)
         out["plain_ms"] = plain_ms
         bms, by = out["bound"]
-        log(f"  prep at {what}: B={B} R={R} W={W}; kernel {out['ms']:.3f} ms, "
-            f"plain {plain_ms:.2f} ms, bound {bms:.4f} ms ({by}), "
+        log(f"  prep at {what}: B={B} R={R} W={W}; kernel {out['ms']:.3f} ms "
+            f"(the wrapper's call with its host time {call_ms:.3f}), plain "
+            f"{plain_ms:.2f} ms, bound {bms:.4f} ms ({by}), "
             f"{100 * bms / out['ms']:.1f}% of the bound; bit-equal ({card})")
+    out["rows"] = _check_rows(rows_call, what, card, reps)
+    if sites is not None:
+        sites["prep"]["err"] = max(sites["prep"]["err"], out["err"])
+        sites["rows"]["err"] = max(sites["rows"]["err"], out["rows"]["err"])
     return out
+
+
+def _cuda_launches(fn, sessions=3):
+    """The CUDA work one call of fn launches, by torch.profiler: the most
+    device events one of ``sessions`` profiled calls recorded, and the
+    names recorded in any. The profiler never invents an event but can
+    miss one: in one process it recorded a prep's two launches in its
+    first sessions and then, after a few, one or none of them, and a
+    session's first launches can go unrecorded, so each session first
+    runs torch.cuda._sleep's spin kernel twice (not counted), and this
+    runs in a fresh process (``_prep_launch_child``). The most is a lower
+    bound of the count; the names show which kernels ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: (getattr(e, "self_device_time_total", 0)
+                        or getattr(e, "self_cuda_time_total", 0))
+    most, names = 0, set()
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if dev_us(e) > 0 and "spin_kernel" not in e.key}
+        most = max(most, sum(kernels.values()))
+        names |= set(kernels)
+    return most, sorted(names)
+
+
+PREP_LAUNCH_FLAG = "--prep-launches"
+
+
+def _prep_launch_child():
+    """The child of ``phase_prep_launches``: one precompute at the
+    headline batch and one precompute_window over the windows of its
+    first pair (256 rows each, emitted ranges set), each run once and
+    then counted by ``_cuda_launches``; prints one JSON line."""
+    from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
+    from cpecan_tpu_torch.ops import fb as _fb
+    from cpecan_tpu_torch.ops import fb_streaming
+    from cpecan_tpu_torch.ops import fb_wavefront as wf
+
+    hmm = PairHMM.from_state_machine(state_machine5()).cuda()
+    bt = _band_batch(np.random.default_rng(0), 256, 2048, "posterior_match",
+                     state_machine5, anchor_every=50)
+    args, W = bt["args"], bt["W"]
+    lx, ly = int(args[4][0]), int(args[5][0])
+    L, K = lx + ly, 256
+    frame = [a[0].cpu().numpy() for a in _fb._frame_from_band(args[2][:1],
+                                                              args[3][:1])]
+    sx, sy, fr = fb_streaming._device_pair(
+        args[0][0, :lx].cpu().numpy(), args[1][0, :ly].cpu().numpy(), frame,
+        K + W + 1, "cuda")
+    starts = torch.arange(1, L + 1, K, device="cuda")
+    emit = torch.stack([starts + 8, starts + K - 8], 1)
+    calls = {
+        "precompute": lambda: wf.precompute(hmm, *args, width=W),
+        "precompute_window": lambda: wf.precompute_window(
+            hmm, sx, sy, fr, ly, L, starts, K, W, K + W + 1, emit=emit)}
+    out = {}
+    for name, call in calls.items():
+        call()
+        out[name] = _cuda_launches(call)
+    print(json.dumps(out))
+    return 0
+
+
+def phase_prep_launches(card):
+    """One precompute and one precompute_window make at most 2 CUDA
+    launches each, wavefront_rows and wavefront_prep, as torch.profiler
+    counts them in a fresh process (``_prep_launch_child``)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           PREP_LAUNCH_FLAG], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"prep launch count: rc {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, (n, kernels) in counts.items():
+        seen = [k for k in ("wavefront_rows", "wavefront_prep")
+                if any(k in kern for kern in kernels)]
+        if n > 2 or len(seen) < 2:
+            raise AssertionError(f"one {name}: up to {n} CUDA launches, "
+                                 f"kernels {kernels}; expected at most 2, "
+                                 f"wavefront_rows and wavefront_prep")
+        log(f"one {name}: {n} CUDA launches by torch.profiler ({card}): "
+            + ", ".join(k[:60] for k in kernels))
+
+
+# device cycles of the spin ahead of a timed prep call (~2.5 ms at the
+# H100's 1.98 GHz): longer than the host takes to issue the call
+SPIN_CYCLES = 5_000_000
+
+
+def _device_ms(fn, reps):
+    """CUDA-event median of ``reps`` calls of fn, each issued while the
+    device spins (torch.cuda._sleep), so the events time the device's
+    work and not the host's time to issue it (``_median_ms`` times both:
+    for a call whose kernels take less than their wrapper's host time it
+    measures the host)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def phase_kernels(card):
@@ -571,7 +780,7 @@ def phase_kernels(card):
     from cpecan_tpu_torch.ops import fb_wavefront as wf
 
     summary = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}, "exp": {"err": 0.0},
-               "prep": {"err": 0.0}}
+               "prep": {"err": 0.0}, "rows": {"err": 0.0}}
     wf.reset_launch_counts()
     for name, bt in _batches().items():
         hmm = PairHMM.from_state_machine(bt["sm"]).cuda()
@@ -597,11 +806,11 @@ def phase_kernels(card):
             if not torch.equal(pre[k], want_pre[k]):
                 raise AssertionError(f"precompute at {name}: {k} differs")
         del want_pre
-        chk = _check_prep(kept[0], name, card)
-        summary["prep"]["err"] = max(summary["prep"]["err"], chk["err"])
+        chk = _check_prep(kept[0], name, card, sites=summary)
         if name.startswith("a_"):
-            summary["prep"].update(ms=chk["ms"], plain_ms=chk["plain_ms"],
-                                   bound=chk["bound"])
+            for k, c in (("prep", chk), ("rows", chk["rows"])):
+                summary[k].update(ms=c["ms"], plain_ms=c["plain_ms"],
+                                  bound=c["bound"])
         del kept
         t = hmm.t_prob_host
         fin = (t, pre["ex"], pre["ey"], pre["em"], pre["a"], pre["b1"],
@@ -966,7 +1175,7 @@ def _run_realign(fasta, cigars, extra, card):
     launches = dict(wf.LAUNCHES)
     if fb_batch.LAST_ENGINE != "cuda":
         raise AssertionError(f"engine {fb_batch.LAST_ENGINE!r}, not cuda")
-    for k in ("fwd", "bwd", "prep"):
+    for k in ("fwd", "bwd", "prep", "rows"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the main path")
     _check_cigars(out, cigars)
@@ -1155,7 +1364,7 @@ def _run_em(fasta, cigar_file, out_model, n_records, extra, card):
         em_mod.maximisation_step = real_m_step
     if fb_batch.LAST_ENGINE != "cuda":
         raise AssertionError(f"engine {fb_batch.LAST_ENGINE!r}, not cuda")
-    for k in ("fwd", "exp", "prep"):
+    for k in ("fwd", "exp", "prep", "rows"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the EM path")
     if launches["bwd"] != 0:
@@ -1287,8 +1496,9 @@ SITES = {
                  "wavefront_bwd_wide"),
     "wide_exp": ("exp", "cpecan_tpu/ops/fb_wavefront.py:592",
                  "wavefront_exp_wide"),
-    # the stream prep's slot part at every site (XLA on the TPU)
+    # the stream prep's slot and row parts at every site (XLA on the TPU)
     "prep": ("prep", "cpecan_tpu/ops/fb_wavefront.py:865", "wavefront_prep"),
+    "rows": ("rows", "cpecan_tpu/ops/fb_wavefront.py:865", "wavefront_rows"),
 }
 LONG_SITES = ("seg_fwd", "seg_bwd", "seg_exp", "par_fwd", "par_bwd")
 WIDE_SITES = ("wide_fwd", "wide_bwd", "wide_exp")
@@ -1533,15 +1743,15 @@ def phase_long_kernels(card, sites):
             got = run()
         torch.cuda.synchronize()
         launches = {k: v for k, v in wf.LAUNCHES.items() if v}
-        if launches.get("prep", 0) != len(preps) or not preps:
+        if (launches.get("prep", 0) != len(preps) or not preps
+                or launches.get("rows", 0) != len(preps)):
             raise AssertionError(f"{engine} {mode}: {len(preps)} prep calls, "
                                  f"launches {launches}")
-        for i, args in enumerate(preps):
-            chk = _check_prep(args, f"window batch {i} of {engine} {mode}", card,
-                              reps=10 if i == 0 else 0)
-            sites["prep"]["err"] = max(sites["prep"]["err"], chk["err"])
-        log(f"  prep: {len(preps)} window batches of {engine} {mode} bit-equal "
-            f"to the plain version ({card})")
+        for i, entry in enumerate(preps):
+            _check_prep(entry, f"window batch {i} of {engine} {mode}", card,
+                        reps=10 if i == 0 else 0, sites=sites)
+        log(f"  prep and rows: {len(preps)} window batches of {engine} {mode} "
+            f"bit-equal to the plain versions ({card})")
         del preps
         with _plain_versions():
             want = run()
@@ -1696,11 +1906,11 @@ def phase_long_pair(card, sites):
         f"sensitivity {sens:.4f}, specificity {spec:.4f}")
     sites["par_fwd"]["launches"] = launches["par_fwd"]
     sites["par_bwd"]["launches"] = launches["par_bwd"]
-    if launches["prep"] <= 0:
-        raise AssertionError("prep was not launched by the 500 kb path")
-    chk = _check_prep(prep[0], "the 500 kb path's largest window batch (site 7's "
-                      "streams)", card)
-    sites["prep"]["err"] = max(sites["prep"]["err"], chk["err"])
+    if launches["prep"] <= 0 or launches["rows"] != launches["prep"]:
+        raise AssertionError("prep and rows were not launched by the 500 kb "
+                             f"path as often as each other: {launches}")
+    _check_prep(prep[0], "the 500 kb path's largest window batch (site 7's "
+                "streams)", card, sites=sites)
     del prep
     for site, entry in kept.items():
         e, ms, plain_ms, bound = _check_site(
@@ -1726,9 +1936,8 @@ def phase_long_pair(card, sites):
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched by the exact engine")
         sites[k]["launches"] = launches[k]
-    chk = _check_prep(prep[0], "one window of the exact engine on that chunk",
-                      card)
-    sites["prep"]["err"] = max(sites["prep"]["err"], chk["err"])
+    _check_prep(prep[0], "one window of the exact engine on that chunk", card,
+                sites=sites)
     del prep
     par_out = _stream(*args, "parallel", threshold=p.threshold)
     log(f"  longest streamed chunk: {len(t.sub_x)} x {len(t.sub_y)}, "
@@ -2182,11 +2391,14 @@ def _nan_totals(card):
 
 
 def _nan_prep(card, sites):
-    """wavefront_prep on a model whose emission tables hold NaN and inf
-    (gap x of A, gap y of G, match (C, T) and (G, A)): bit for bit as the
-    plain version, NaN where it has NaN, on 16 pairs of the headline's
-    shape and on windows of the first of them (precompute_window with
-    emitted row ranges); each stream must hold NaN off the band."""
+    """wavefront_prep and wavefront_rows on a model whose emission tables
+    hold NaN and inf (gap x of A, gap y of G, match (C, T) and (G, A)),
+    whose start probabilities hold a NaN and whose end ones an inf: bit
+    for bit as the plain versions, NaN where they have NaN, on 16 pairs of
+    the headline's shape and on windows of the first of them
+    (precompute_window with emitted row ranges); each stream must hold NaN
+    off the band, F0 NaN and its scale 1 (m0log 0), end_row NaN off the
+    band."""
     from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
     from cpecan_tpu_torch.ops import fb as _fb
     from cpecan_tpu_torch.ops import fb_streaming
@@ -2198,18 +2410,24 @@ def _nan_prep(card, sites):
     bufs["em_gap_y"][2] = np.inf
     bufs["em_match"][1, 3] = np.nan
     bufs["em_match"][2, 0] = np.inf
+    bufs["start"][1] = np.nan
+    bufs["end"][0] = np.inf
     hmm = PairHMM(bufs).cuda()
     bt = _band_batch(np.random.default_rng(4), 16, 2048, "posterior_match",
                      state_machine5, anchor_every=50)
     args, W = bt["args"], bt["W"]
     with _capture_prep() as kept:
         pre = wf.precompute(hmm, *args, width=W)
-    err = _check_prep(kept[0], "a NaN/inf emission model", card, reps=0)["err"]
+    _check_prep(kept[0], "a NaN/inf emission model", card, reps=0, sites=sites)
     js = torch.arange(W, device="cuda")
     off = ~((js >= pre["jlo"][..., None]) & (js <= pre["jhi"][..., None]))
     for k in PREP_KEYS[:6]:
         if not pre[k][off].isnan().any():
             raise AssertionError(f"NaN/inf model: no NaN in {k} off the band")
+    if not (pre["F0"].isnan().any() and (pre["m0log"] == 0).all()
+            and pre["end_row"].isnan().any()):
+        raise AssertionError("NaN/inf model: F0, m0log or end_row do not carry "
+                             "the NaN start and the inf end")
     lx, ly = int(args[4][0]), int(args[5][0])
     L, K = lx + ly, 256
     frame = [a[0].cpu().numpy() for a in _fb._frame_from_band(args[2][:1],
@@ -2221,12 +2439,11 @@ def _nan_prep(card, sites):
     with _capture_prep() as kept:
         wf.precompute_window(hmm, sx, sy, fr, ly, L, starts, K, W, K + W + 1,
                              emit=torch.stack([starts + 8, starts + K - 8], 1))
-    err = max(err, _check_prep(kept[0], "windows of a NaN/inf emission model",
-                               card, reps=0)["err"])
-    sites["prep"]["err"] = max(sites["prep"]["err"], err)
-    log(f"NaN/inf emission tables: prep bit-equal to the plain version on 16 "
-        f"pairs at W={W} and {len(starts)} windows of {K} rows, NaN off the "
-        f"band in every stream ({card})")
+    _check_prep(kept[0], "windows of a NaN/inf emission model", card, reps=0,
+                sites=sites)
+    log(f"NaN/inf emission, start and end tables: prep and rows bit-equal to "
+        f"the plain versions on 16 pairs at W={W} and {len(starts)} windows of "
+        f"{K} rows, NaN off the band in every stream ({card})")
 
 
 def _nan_debug_on_card(bt, hmm, card):
@@ -3129,6 +3346,7 @@ def main() -> int:
         ptxas = phase_build()
     with _wall("3 kernels"):
         summary = phase_kernels(card)
+        phase_prep_launches(card)
     with _wall("3 fwd sweep"):
         phase_fwd_sweep(card, ptxas)
     with _wall("3 bwd sweep"):
@@ -3166,7 +3384,7 @@ def main() -> int:
             phase_em_card_cpu(tmp, fasta, some)
 
         sites = {k: {"err": 0.0} for k in LONG_SITES + WIDE_SITES}
-        sites["prep"] = summary["prep"]
+        sites["prep"], sites["rows"] = summary["prep"], summary["rows"]
         for phase, run in (
                 ("8 long kernels", lambda: phase_long_kernels(card, sites)),
                 ("9 long pair", lambda: phase_long_pair(card, sites)),
@@ -3191,9 +3409,11 @@ def main() -> int:
     runs = {"fwd": launches, "bwd": launches, "exp": em_launches}
     for k in ("fwd", "bwd", "exp"):
         sites[k] = {"launches": runs[k][k], **summary[k]}
-    # the prep: launches from the realign main path, times at the headline
-    # batch, the error of every prep check (phases 3, 8, 9 and 12)
+    # the prep's two kernels: launches from the realign main path, times
+    # at the headline batch, the error of every prep check (phases 3, 8, 9
+    # and 12)
     sites["prep"]["launches"] = launches["prep"]
+    sites["rows"]["launches"] = launches["rows"]
     kernels = []
     for k, (_, replaces, name) in SITES.items():
         v = sites[k]
@@ -3212,4 +3432,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_prep_launch_child() if sys.argv[1:] == [PREP_LAUNCH_FLAG]
+             else main())

@@ -16,11 +16,17 @@
 // and computes what those bodies compute; the plain PyTorch versions
 // (cpecan_tpu_torch/ops/fb_wavefront.py fwd_reference / bwd_reference /
 // exp_reference) follow the same arithmetic and are the kernels' oracle.
-// One more kernel writes the streams those three read:
+// Two more kernels write the streams those three read:
 //   wavefront_prep <- the slot part of _precompute_one
 //                    (fb_wavefront.py:865; XLA on the TPU, not Pallas),
 //                    for the batch and every window site; see there
-//                    (oracle: streams_reference).
+//                    (oracle: streams_reference);
+//   wavefront_rows <- the row part of _precompute_one (fb_wavefront.py:
+//                    874-945) and of its window forms _prep_window
+//                    (fb_segmented.py:72) and _prep_one
+//                    (fb_parallel.py:96), which writes what
+//                    wavefront_prep reads (oracles: rows_reference,
+//                    rows_window_reference).
 //
 // Layout (batch-major, all contiguous): streams (B, R, W) with R
 // diagonals and W band slots; the forward intermediate F (B, R, S, W);
@@ -149,6 +155,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 #include <utility>
 
 namespace {
@@ -3003,7 +3010,7 @@ int exp_entry(bool wide, int S, const float* t_host, const float* efx, const flo
 //   - the cells' symbol pairs wx[j] and wy[j+1].
 // Outputs are bit-equal to the plain version's: table entries times 1 or
 // 0, and integer logic. The row part (frame, shift selects, pm's row bits,
-// start and end rows) stays torch ops on (B, R) tensors.
+// the row tensor, start and end rows, the tables) is wavefront_rows, below.
 //
 // What bounds it on the card: the bytes it writes, 6 x 4 + 3 bytes per
 // slot (1.83 GB at the headline batch: 0.55 ms at 3.35 TB/s); it reads
@@ -3148,6 +3155,237 @@ int prep_entry(const PrepArgs& p, int B, int R, int W, void* stream) {
     wavefront_prep<true><<<blocks, kPrepThreads, 0, st>>>(p, B, R, W);
   else
     wavefront_prep<false><<<blocks, kPrepThreads, 0, st>>>(p, B, R, W);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// wavefront_rows: the stream prep's row part
+// ---------------------------------------------------------------------------
+//
+// Replaces the rest of _precompute_one (cpecan_tpu/ops/fb_wavefront.py:
+// 874-945) and of its window forms _prep_window (fb_segmented.py:72) and
+// _prep_one (fb_parallel.py:96): the work per row (diagonal) and per pair
+// that feeds wavefront_prep and the three wavefront kernels, which the
+// plain versions (ops/fb_wavefront.py rows_reference and
+// rows_window_reference) do in ~70 tensor ops. One block per pair (batch
+// form) or per window of one long pair (window form: offsets null). Per
+// row k:
+//   - the x-frame. Batch form: xlo = floor((k + offset) / 2) (a floor for
+//     negative sums too), xoff = the running max of xlo over rows 0..k (a
+//     block scan per tile of rows, its max carried to the next tile), jlo
+//     = xlo - xoff, jhi = xlo + width - 1 - xoff, written as int64;
+//     delta = xoff[k] - xoff[k-1] (0 at row 0 and past the last row),
+//     read back from those outputs after a block barrier. Window form:
+//     the long pair's frame at global diagonal k = start + r, read at k +
+//     off clamped to [0, last], and shifted by the window's slot base;
+//   - the eight shift selects from delta and its neighbours (d_{k-1},
+//     d_{k+1}, d_{k+2} and dmid of row k+1; the batch form's dmid1 is 0
+//     on the last row, the window form's d1 + delta - 1);
+//   - pm's row bits (kPmAtEnd at k == L, kPmBridge for 1 <= k < L) and
+//     kRowValid (1 <= k <= L, in the window form also inside the emitted
+//     rows [lo, hi));
+//   - the row tensor {k, xoff, jlo, jhi} int32 that wavefront_prep reads.
+// Per pair (batch form): the padded symbols sx_pad and sy_pad (sy
+// reversed, W + 1 sentinels on each side, the sentinel past each length),
+// the start row F0 over its max m0 (a NaN-propagating max from 0, then m0
+// := m0 > 0 ? m0 : 1), log m0, and the end row masked to the band slots of
+// diagonal clamp(L, 0, P). Block 0 also writes the emission tables in
+// probability space (gap x, gap y, match: 35 floats), which wavefront_prep
+// reads in place of separate exp launches.
+// Bit-equal to the plain version on the card: integer logic, and expf,
+// logf, one IEEE division and multiplies by 1 or 0 on the same f32
+// inputs as torch's exp, log and division there (the file is built
+// without fast-math).
+//
+// What bounds it on the card: bytes, a few dozen a row (the int64 frame,
+// the row tensor, the selects and bits) and 2 x S x W floats a pair: at
+// the headline batch ~22 MB against the slot part's 1.8 GB. It exists to
+// take the row part's ~95 launches, and their host time, off every prep;
+// one block per pair is enough for that.
+
+constexpr int kRowsThreads = 256;
+constexpr int kEmissionTables = 5 + 5 + 25;  // gap x, gap y, match
+
+struct RowsArgs {
+  int S;
+  // log-space model buffers (device f32)
+  const float *em_gap_x, *em_gap_y, *em_match, *start, *ragged_start, *end, *ragged_end;
+  // batch form: the (B, n) symbols, (B, R) band, (B,) lengths and ragged
+  // flags, each with its element type (1 int8, -1 uint8 or bool, 2, 4, 8)
+  const void *sx, *sy, *offsets, *widths, *lx, *ly, *rl, *rr;
+  int sx_t, sy_t, off_t, wid_t, lx_t, ly_t, rl_t, rr_t;
+  int LX, LY;
+  // window form: the long pair's frame (nf rows each), the windows'
+  // first diagonals, slot bases and emitted row ranges (both nullable)
+  const int64_t *fxoff, *fdelta, *fjlo, *fjhi;
+  int nf;
+  const int64_t *starts, *base, *emit;
+  int L;
+  // outputs of both forms
+  float* tables;  // (kEmissionTables,)
+  int4* rows;     // (B * R): {k, xoff, jlo, jhi}
+  int8_t* bits;   // (B * R)
+  int8_t* sel;    // (8, B * R): a, b1, b0, abw, c1, c0, bm1, bm0
+  // outputs of the batch form
+  int8_t *sx_pad, *sy_pad;  // (B, LX + 2(W+1)), (B, LY + 2(W+1))
+  int64_t *xoff, *jlo, *jhi, *Lout;
+  float *F0, *m0log, *end_row;  // (B, S, W), (B,), (B, S, W)
+};
+
+__device__ __forceinline__ long long load_int(const void* p, size_t i, int type) {
+  switch (type) {
+    case 1: return static_cast<const int8_t*>(p)[i];
+    case -1: return static_cast<const uint8_t*>(p)[i];
+    case 2: return static_cast<const int16_t*>(p)[i];
+    case 4: return static_cast<const int32_t*>(p)[i];
+    default: return static_cast<const int64_t*>(p)[i];
+  }
+}
+
+// floor(v / 2), also for negative v (C's / truncates toward zero)
+__device__ __forceinline__ long long floor_half(long long v) {
+  return v >= 0 ? v / 2 : -((1 - v) / 2);
+}
+
+__device__ __forceinline__ void write_row(const RowsArgs& p, size_t n, size_t at, long long k,
+                                          long long xoff, long long jlo, long long jhi,
+                                          long long delta, long long d_km1, long long d1,
+                                          long long d2, long long dmid1, bool valid,
+                                          bool at_end, bool bridge) {
+  const long long dmid = delta + d_km1 - 1, dsum2 = d1 + d2;
+  const bool sel[8] = {delta == 1, dmid == 1, dmid == 0,  d1 == 1,
+                       dsum2 == 2, dsum2 == 1, dmid1 == 1, dmid1 == 0};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) p.sel[c * n + at] = (int8_t)sel[c];
+  p.bits[at] = (int8_t)((valid ? kRowValid : 0) | (at_end ? kPmAtEnd : 0) |
+                        (bridge ? kPmBridge : 0));
+  p.rows[at] = make_int4((int)k, (int)xoff, (int)jlo, (int)jhi);
+}
+
+template <bool kWindow>
+__global__ void __launch_bounds__(kRowsThreads) wavefront_rows(RowsArgs p, int B, int R, int W) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  if (b == 0) {
+    for (int i = tid; i < kEmissionTables; i += blockDim.x)
+      p.tables[i] = expf(i < 5 ? p.em_gap_x[i] : i < 10 ? p.em_gap_y[i - 5] : p.em_match[i - 10]);
+  }
+  const size_t n = (size_t)B * R;
+  const size_t row0 = (size_t)b * R;
+
+  if constexpr (kWindow) {
+    const long long s0 = p.starts[b];
+    const long long bs = p.base != nullptr ? p.base[b] : 0;
+    const long long lo = p.emit != nullptr ? p.emit[2 * b] : s0;
+    const long long hi = p.emit != nullptr ? p.emit[2 * b + 1] : s0 + R;
+    const long long last = p.nf - 1;
+    for (int r = tid; r < R; r += blockDim.x) {
+      const long long k = s0 + r;
+      const auto at = [&](const int64_t* f, int off) {
+        return f[min(max(k + off, 0LL), last)];
+      };
+      const long long delta = at(p.fdelta, 0), d1 = at(p.fdelta, 1);
+      write_row(p, n, row0 + r, k, at(p.fxoff, 0) + bs, at(p.fjlo, 0) - bs, at(p.fjhi, 0) - bs,
+                delta, at(p.fdelta, -1), d1, at(p.fdelta, 2), d1 + delta - 1,
+                k >= lo && k < hi && k >= 1 && k <= p.L, k == p.L, k >= 1 && k < p.L);
+    }
+    return;
+  }
+
+  // ---- batch form: one pair
+  const long long lxb = load_int(p.lx, b, p.lx_t), lyb = load_int(p.ly, b, p.ly_t);
+  const long long L = lxb + lyb;
+  if (tid == 0) p.Lout[b] = L;
+  const int nxp = p.LX + 2 * (W + 1), nyp = p.LY + 2 * (W + 1);
+  for (int i = tid; i < nxp; i += blockDim.x) {
+    const int q = i - (W + 1);
+    p.sx_pad[(size_t)b * nxp + i] =
+        q >= 0 && q < p.LX && q < lxb ? (int8_t)load_int(p.sx, (size_t)b * p.LX + q, p.sx_t)
+                                      : (int8_t)kSentinel;
+  }
+  for (int i = tid; i < nyp; i += blockDim.x) {
+    const int q = p.LY - 1 - (i - (W + 1));  // sy reversed
+    p.sy_pad[(size_t)b * nyp + i] =
+        q >= 0 && q < p.LY && q < lyb ? (int8_t)load_int(p.sy, (size_t)b * p.LY + q, p.sy_t)
+                                      : (int8_t)kSentinel;
+  }
+
+  // the start row over its max; every thread takes the same S values
+  const int S = p.S;
+  const float* sv = load_int(p.rl, b, p.rl_t) != 0 ? p.ragged_start : p.start;
+  float m0 = 0.f;  // exp is >= 0 (or NaN), so a max from 0 is F0's at any W
+  for (int s = 0; s < S; ++s) m0 = max_nan(m0, expf(sv[s]));
+  m0 = m0 > 0.f ? m0 : 1.f;
+  if (tid == 0) p.m0log[b] = logf(m0);
+  for (int i = tid; i < S * W; i += blockDim.x)
+    p.F0[(size_t)b * S * W + i] = (i % W == 0 ? expf(sv[i / W]) : 0.f) / m0;
+
+  // the x-frame: a block max-scan of xlo per tile, carried across tiles
+  __shared__ long long warp_max[kRowsThreads / 32];
+  __shared__ long long carry;
+  if (tid == 0) carry = LLONG_MIN;
+  __syncthreads();
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int t0 = 0; t0 < R; t0 += blockDim.x) {
+    const int k = t0 + tid;
+    long long xlo = LLONG_MIN, wd = 0;
+    if (k < R) {
+      xlo = floor_half(k + load_int(p.offsets, row0 + k, p.off_t));
+      wd = load_int(p.widths, row0 + k, p.wid_t);
+    }
+    long long v = xlo;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v = max(v, u);
+    }
+    if (lane == 31) warp_max[warp] = v;
+    __syncthreads();
+    long long before = carry;
+    for (int w = 0; w < warp; ++w) before = max(before, warp_max[w]);
+    v = max(v, before);
+    if (k < R) {
+      p.xoff[row0 + k] = v;
+      p.jlo[row0 + k] = xlo - v;
+      p.jhi[row0 + k] = xlo + wd - 1 - v;
+    }
+    __syncthreads();  // carry and warp_max read by every thread
+    if (tid == blockDim.x - 1) carry = v;
+    __syncthreads();
+  }
+
+  // per row, from the frame this block wrote (visible after the barrier)
+  const int64_t* xo = p.xoff + row0;
+  const auto d = [&](int i) -> long long { return i >= 1 && i < R ? xo[i] - xo[i - 1] : 0; };
+  for (int k = tid; k < R; k += blockDim.x) {
+    const long long delta = d(k), d1 = d(k + 1);
+    write_row(p, n, row0 + k, k, xo[k], p.jlo[row0 + k], p.jhi[row0 + k], delta, d(k - 1), d1,
+              d(k + 2), k < R - 1 ? d1 + delta - 1 : 0, k >= 1 && k <= L, k == L,
+              k >= 1 && k < L);
+  }
+
+  // the end row: the end vector masked to the band slots of row clamp(L, 0, P)
+  const long long rowL = min(max(L, 0LL), (long long)R - 1);
+  const long long lo = p.jlo[row0 + rowL], hi = p.jhi[row0 + rowL];
+  const float* ev = load_int(p.rr, b, p.rr_t) != 0 ? p.ragged_end : p.end;
+  for (int i = tid; i < S * W; i += blockDim.x) {
+    const int j = i % W;
+    p.end_row[(size_t)b * S * W + i] = expf(ev[i / W]) * (j >= lo && j <= hi ? 1.f : 0.f);
+  }
+}
+
+int rows_entry(const RowsArgs& p, int B, int R, int W, void* stream) {
+  const bool window = p.offsets == nullptr;
+  if (B < 0 || R < 0 || W < 1 || reinterpret_cast<uintptr_t>(p.rows) % 16 != 0 ||
+      (window ? p.nf < 1 || p.starts == nullptr : p.S < 1 || p.LX < 0 || p.LY < 0 ||
+                                                   (B > 0 && R < 1)))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * R == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (window)
+    wavefront_rows<true><<<B, kRowsThreads, 0, st>>>(p, B, R, W);
+  else
+    wavefront_rows<false><<<B, kRowsThreads, 0, st>>>(p, B, R, W);
   return (int)cudaGetLastError();
 }
 
@@ -3322,6 +3560,39 @@ int cpecan_wavefront_prep(const int8_t* sx, const int8_t* sy, int sx_stride, int
                       reinterpret_cast<const int4*>(rows), bits, gx, gy, gm,
                       ex, ey, em, efx, efy, efm, pm, wx, wy};
   return prep_entry(p, B, R, W, stream);
+}
+
+// The stream prep's row part (wavefront_rows). S and the model's seven
+// log-space buffers; the batch form's sx, sy (B, LX), (B, LY), offsets,
+// widths (B, R), lx, ly, ragged_left, ragged_right (B,) with their eight
+// element types (1 int8, -1 uint8 or bool, 2 int16, 4 int32, 8 int64), or
+// null offsets for the window form: the long pair's frame xoff, delta,
+// jlo, jhi (nf,) int64, starts (B,) int64, base (B,) and emit (B, 2) int64
+// (both nullable) and the pair's L. Outputs: tables (35,) f32, rows (B,
+// R, 4) int32, bits (B, R) int8, selects (8, B, R) int8; the batch form's
+// sx_pad (B, LX + 2(W+1)), sy_pad (B, LY + 2(W+1)) int8, xoff, jlo, jhi
+// (B, R) and L (B,) int64, F0 (B, S, W), m0log (B,), end_row (B, S, W)
+// f32 (all null in the window form).
+int cpecan_wavefront_rows(int S, const float* em_gap_x, const float* em_gap_y,
+                          const float* em_match, const float* start, const float* ragged_start,
+                          const float* end, const float* ragged_end, const void* sx,
+                          const void* sy, const void* offsets, const void* widths, const void* lx,
+                          const void* ly, const void* ragged_left, const void* ragged_right,
+                          int sx_t, int sy_t, int off_t, int wid_t, int lx_t, int ly_t, int rl_t,
+                          int rr_t, int LX, int LY, const int64_t* fxoff, const int64_t* fdelta,
+                          const int64_t* fjlo, const int64_t* fjhi, int nf,
+                          const int64_t* starts, const int64_t* base, const int64_t* emit, int L,
+                          float* tables, int32_t* rows, int8_t* bits, int8_t* selects,
+                          int8_t* sx_pad, int8_t* sy_pad, int64_t* xoff, int64_t* jlo,
+                          int64_t* jhi, int64_t* Lout, float* F0, float* m0log, float* end_row,
+                          int B, int R, int W, void* stream) {
+  const RowsArgs p = {S, em_gap_x, em_gap_y, em_match, start, ragged_start, end, ragged_end,
+                      sx, sy, offsets, widths, lx, ly, ragged_left, ragged_right,
+                      sx_t, sy_t, off_t, wid_t, lx_t, ly_t, rl_t, rr_t, LX, LY,
+                      fxoff, fdelta, fjlo, fjhi, nf, starts, base, emit, L,
+                      tables, reinterpret_cast<int4*>(rows), bits, selects,
+                      sx_pad, sy_pad, xoff, jlo, jhi, Lout, F0, m0log, end_row};
+  return rows_entry(p, B, R, W, stream);
 }
 
 const char* cpecan_cuda_error_string(int err) {

@@ -48,6 +48,11 @@ _SIGNATURES = {  # (S, pointers..., B, R, W, k0, stream)
     # (sx, sy, sx and sy pair strides, their lengths, LY, pad_off, rows,
     # bits, the three emission tables, the 9 streams, B, R, W, stream)
     "cpecan_wavefront_prep": [_P] * 2 + [_I] * 6 + [_P] * 14 + [_I] * 3 + [_P],
+    # (S, the model's 7 buffers, the batch form's 8 inputs, their 8 element
+    # types, LX, LY, the window form's frame (4), nf, starts, base, emit, L,
+    # the 13 outputs, B, R, W, stream)
+    "cpecan_wavefront_rows": ([_I] + [_P] * 15 + [_I] * 10 + [_P] * 4 + [_I]
+                              + [_P] * 3 + [_I] + [_P] * 13 + [_I] * 3 + [_P]),
 }
 
 

@@ -17,18 +17,22 @@ kernels (csrc/wavefront.cu) replace its Pallas kernels:
    F_prev[f] * T_c * e_c * B_k[t] / total_k into trans[f, t] and, through
    the cell's symbol pair, into emis[t, a, b]; per-pair outputs.
 
-A fourth kernel takes the stream prep, which the JAX package traces into
+Two more kernels take the stream prep, which the JAX package traces into
 its jit and leaves to XLA (``_precompute_one``, no Pallas kernel):
 
- * ``streams`` <- the slot part of ``_precompute_one``: the kernel
-   ``wavefront_prep`` writes every (B, R, W) stream of the three kernels
-   (masked emissions, pm, the cells' symbol pairs) in one pass from the
-   padded symbols and a few quantities per row. The row part (frame,
-   shift selects, pm's row bits, F0, end rows) stays torch ops on (B, R)
-   tensors in ``precompute`` and ``precompute_window``.
+ * ``prep_rows`` / ``prep_rows_window`` <- the row part of
+   ``_precompute_one`` (and of its window forms): the kernel
+   ``wavefront_rows`` writes per row the frame, the shift selects, pm's
+   row bits and the row tensor, per pair the padded symbols, F0 and the
+   end row, and the emission tables in probability space;
+ * ``streams`` <- the slot part: the kernel ``wavefront_prep`` writes
+   every (B, R, W) stream of the three kernels (masked emissions, pm, the
+   cells' symbol pairs) in one pass from what the row part wrote.
 
+So ``precompute`` and ``precompute_window`` are two launches on the card.
 Each wrapper runs its plain PyTorch version (``fwd_reference`` /
-``bwd_reference`` / ``exp_reference`` / ``streams_reference``) for a CPU
+``bwd_reference`` / ``exp_reference`` / ``rows_reference`` /
+``rows_window_reference`` / ``streams_reference``) for a CPU
 tensor, and launches its kernel or raises for a CUDA tensor
 (``kernel_route`` picks the entry point: the shared-memory variants up
 to ``MAX_KERNEL_WIDTH`` band slots, the wide variants above). The plain
@@ -105,11 +109,12 @@ KERNEL_NZ = _kernels.kernel_structures()
 # wide_bwd or wide_exp where that kernel is a wide variant, and of those
 # one more to cluster_fwd, cluster_bwd or cluster_exp where the launch
 # plan (``fwd_wide_plan``, ``back_wide_plan``) ran the cluster variant.
-# prep counts the stream prep's kernel (``streams``) at every site.
+# prep counts the stream prep's slot kernel (``streams``) and rows its
+# row kernel (``prep_rows``, ``prep_rows_window``) at every site.
 LAUNCHES = {"fwd": 0, "bwd": 0, "exp": 0, "seg_fwd": 0, "seg_bwd": 0,
             "seg_exp": 0, "par_fwd": 0, "par_bwd": 0, "wide_fwd": 0,
             "wide_bwd": 0, "wide_exp": 0, "cluster_fwd": 0, "cluster_bwd": 0,
-            "cluster_exp": 0, "prep": 0}
+            "cluster_exp": 0, "prep": 0, "rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -161,10 +166,66 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
     pass bins its emission counts by; F0 and end_row (B, S, W) f32;
     m0log (B,); xoff/jlo/jhi (B, P+1) int64; L (B,) int64.
 
-    The row part runs here as torch ops on (B, P+1) tensors; the slot
-    part, every (B, P+1, W) output, is ``streams`` (the kernel
-    ``wavefront_prep`` for CUDA tensors).
+    Two parts: the row part ``prep_rows`` (the kernel ``wavefront_rows``
+    for CUDA tensors) and the slot part ``streams``, every (B, P+1, W)
+    output (the kernel ``wavefront_prep``): two launches on the card.
     """
+    W = int(width)
+    r = prep_rows(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
+                  ragged_right, W)
+    out = streams(r.pop("tables"), r.pop("sx_pad"), r.pop("sy_pad"),
+                  sy.shape[1], W + 1, r.pop("rows"), r.pop("bits"), W)
+    out.update(r)
+    return out
+
+
+def precompute_window(hmm, sx_pad, sy_pad, frame: dict, LY: int, L: int,
+                      starts, rows: int, width: int, pad_off: int,
+                      base=None, emit=None) -> dict:
+    """Stream prep for windows of ONE long pair, batched as pairs: window
+    i covers global diagonals [starts[i], starts[i] + rows) of the pair's
+    padded frame (counterpart of ``_prep_window`` in
+    cpecan_tpu/ops/fb_segmented.py and ``_prep_one`` in fb_parallel.py).
+
+    sx_pad, sy_pad: (1, pad_off + n + pad_off) int8 symbols of the pair
+    (sy reversed), padded with pad_off sentinels; frame: the pair's
+    x-frame ``xoff``/``delta``/``jlo``/``jhi``, 1-D int64 over all
+    diagonals plus padding rows with an empty band, at least two rows
+    past the last window. starts (n,) int64. base (n,): window i's slot j
+    is global slot j + base[i] (default 0). emit (n, 2): the rows
+    [lo, hi) whose posteriors the pm bits let through (default all of
+    the window's). The row bits of pm (at_end at k == L, bridge for
+    1 <= k < L) and the neighbour diagonals d_{k-1}, d_{k+1}, d_{k+2}
+    come from the global frame.
+
+    Returns ``precompute``'s stream keys (ex .. pm, wx, wy) at (n, rows,
+    width) and (n, rows); a window that starts at 0 and covers a pair's
+    P+1 diagonals gives precompute's rows (bm1/bm0 of the last row aside,
+    which read a diagonal past the window). Two launches on the card, as
+    ``precompute``: ``prep_rows_window`` and ``streams``."""
+    W = int(width)
+    r = prep_rows_window(hmm, frame, L, starts, rows, base, emit)
+    out = streams(r.pop("tables"), sx_pad, sy_pad, LY, pad_off,
+                  r.pop("rows"), r.pop("bits"), W)
+    out.update(r)
+    return out
+
+
+SELECTS = ("a", "b1", "b0", "abw", "c1", "c0", "bm1", "bm0")
+
+
+def rows_reference(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
+                   ragged_right, width: int) -> dict:
+    """The row part of ``precompute`` in plain PyTorch, the oracle of the
+    kernel ``wavefront_rows`` (batch form): per pair and row what
+    ``_precompute_one`` computes outside the (B, P+1, W) streams.
+
+    Returns the shift selects (``SELECTS``), F0, m0log, end_row, xoff,
+    jlo, jhi and L as ``precompute`` returns them, and what ``streams``
+    reads: tables (35,) f32 (``emission_tables``), sx_pad and sy_pad
+    (B, W+1 + n + W+1) int8 (sy reversed; the sentinel past each length),
+    rows (B, P+1, 4) int32 (``row_tensor``) and bits (B, P+1) int8
+    (``row_bits``)."""
     dev = offsets.device
     W = int(width)
     S = hmm.state_number
@@ -185,13 +246,8 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
                        sy.to(torch.int8), _fb._SENTINEL)
     pad = torch.full((B, W + 1), _fb._SENTINEL, dtype=torch.int8,
                      device=dev)
-    sx_pad = torch.cat([pad, sx_s, pad], dim=1)
-    sy_pad = torch.cat([pad, torch.flip(sy_s, dims=[1]), pad], dim=1)
     ks = torch.arange(P1, device=dev)
     Lc = L[:, None]
-    out = streams(prob, sx_pad, sy_pad, LY, W + 1, ks, xoff, jlo, jhi,
-                  row_bits((ks >= 1) & (ks <= Lc), ks == Lc,
-                           (ks >= 1) & (ks < Lc)), W)
 
     d_km1 = torch.cat([delta[:, :1], delta[:, :-1]], dim=1)
     dmid = delta + d_km1 - 1
@@ -199,14 +255,45 @@ def precompute(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
     d1 = delta_pad[:, 1:P + 2]
     dsum2 = d1 + delta_pad[:, 2:P + 3]
     dmid1 = torch.cat([dmid[:, 1:], dmid.new_zeros(B, 1)], dim=1)
-    out.update(row_selects(delta, dmid, d1, dsum2, dmid1))
+    out = row_selects(delta, dmid, d1, dsum2, dmid1)
     out["F0"], out["m0log"] = start_rows(prob, ragged_left, S, W)
     bi, rowL = torch.arange(B, device=dev), L.clamp(0, P)
     js = torch.arange(W, device=dev)
     slot_ok_L = ((js >= jlo[bi, rowL][:, None])
                  & (js <= jhi[bi, rowL][:, None]))
     out["end_row"] = end_rows(prob, ragged_right, slot_ok_L.float())
-    out.update(xoff=xoff, jlo=jlo, jhi=jhi, L=L)
+    out.update(
+        xoff=xoff, jlo=jlo, jhi=jhi, L=L, tables=emission_tables(prob),
+        sx_pad=torch.cat([pad, sx_s, pad], dim=1),
+        sy_pad=torch.cat([pad, torch.flip(sy_s, dims=[1]), pad], dim=1),
+        rows=row_tensor(ks, xoff, jlo, jhi),
+        bits=row_bits((ks >= 1) & (ks <= Lc), ks == Lc, (ks >= 1) & (ks < Lc)))
+    return out
+
+
+def rows_window_reference(hmm, frame: dict, L: int, starts, rows: int,
+                          base=None, emit=None) -> dict:
+    """The row part of ``precompute_window`` in plain PyTorch, the oracle
+    of the kernel ``wavefront_rows`` (window form; arguments as there).
+    Returns the shift selects (``SELECTS``) and tables, rows and bits as
+    ``rows_reference`` does, at (n, rows)."""
+    dev = starts.device
+    prob = _fb._prob_params(hmm)
+    ks = starts[:, None] + torch.arange(rows, device=dev)
+    last = frame["xoff"].shape[0] - 1
+    at = lambda key, off=0: frame[key][(ks + off).clamp(0, last)]
+    base = (torch.zeros_like(starts) if base is None else base)[:, None]
+    xoff = at("xoff") + base
+    delta, d_km1, d1, d2 = at("delta"), at("delta", -1), at("delta", 1), \
+        at("delta", 2)
+    jlo, jhi = at("jlo") - base, at("jhi") - base
+    lo, hi = ((ks[:, :1], ks[:, -1:] + 1) if emit is None
+              else (emit[:, :1], emit[:, 1:]))
+    out = row_selects(delta, delta + d_km1 - 1, d1, d1 + d2, d1 + delta - 1)
+    out.update(
+        tables=emission_tables(prob), rows=row_tensor(ks, xoff, jlo, jhi),
+        bits=row_bits((ks >= lo) & (ks < hi) & (ks >= 1) & (ks <= L),
+                      ks == L, (ks >= 1) & (ks < L)))
     return out
 
 
@@ -214,10 +301,9 @@ def row_selects(delta, dmid, d1, dsum2, dmid1) -> dict:
     """The kernels' row-constant shift selects, (..., R) int8, from the
     x-frame steps: delta, dmid = d_k + d_{k-1} - 1, d1 = d_{k+1}, dsum2 =
     d_{k+1} + d_{k+2} and dmid1 (dmid of row k+1)."""
-    i8 = lambda cond: cond.to(torch.int8)
-    return {"a": i8(delta == 1), "b1": i8(dmid == 1), "b0": i8(dmid == 0),
-            "abw": i8(d1 == 1), "c1": i8(dsum2 == 2), "c0": i8(dsum2 == 1),
-            "bm1": i8(dmid1 == 1), "bm0": i8(dmid1 == 0)}
+    conds = (delta == 1, dmid == 1, dmid == 0, d1 == 1, dsum2 == 2,
+             dsum2 == 1, dmid1 == 1, dmid1 == 0)
+    return {k: c.to(torch.int8) for k, c in zip(SELECTS, conds)}
 
 
 def row_bits(valid_rows, at_end, bridge):
@@ -230,20 +316,38 @@ def row_bits(valid_rows, at_end, bridge):
             | bridge.to(i8) * _PM_BRIDGE)
 
 
-def streams_reference(prob, sx_pad, sy_pad, LY: int, pad_off: int, ks,
-                      xoff, jlo, jhi, bits, width: int) -> dict:
+def row_tensor(ks, xoff, jlo, jhi):
+    """The (B, R, 4) int32 rows {k, xoff, jlo, jhi} that ``streams``
+    reads; ks may broadcast."""
+    return torch.stack([ks.expand_as(xoff), xoff, jlo, jhi],
+                       dim=-1).to(torch.int32)
+
+
+def emission_tables(prob):
+    """(35,) f32: the gap x (5,), gap y (5,) and match (5 x 5) emission
+    probabilities that ``streams`` reads, from ``_fb._prob_params``."""
+    return torch.cat([prob["em_gap_x"], prob["em_gap_y"],
+                      prob["em_match"].reshape(-1)])
+
+
+def streams_reference(tables, sx_pad, sy_pad, LY: int, pad_off: int, rows,
+                      bits, width: int) -> dict:
     """The slot part of the stream prep in plain PyTorch, the oracle of
     the kernel ``wavefront_prep``: per (row, slot) the emissions masked
     to the band's slots, the pm bitfield and the cells' symbol pairs.
 
-    sx_pad, sy_pad: (B or 1, pad_off + n + pad_off) int8 symbols (sy
-    reversed) padded with pad_off sentinels; one row serves every row of
-    the batch (the windows of one long pair). LY: sy's unpadded length.
-    ks (row diagonals), xoff (window origins), jlo, jhi (band slot
-    bounds): (B, R) int64, ks may broadcast; bits (B, R) int8 from
-    ``row_bits``. Returns ex/ey/em/efx/efy/efm (B, R, W) f32 and
-    pm/wx/wy (B, R, W) int8, as ``precompute`` returns them."""
+    tables: (35,) f32 from ``emission_tables``. sx_pad, sy_pad: (B or 1,
+    pad_off + n + pad_off) int8 symbols (sy reversed) padded with pad_off
+    sentinels; one row serves every row of the batch (the windows of one
+    long pair). LY: sy's unpadded length. rows: (B, R, 4) int32 {row
+    diagonal k, window origin xoff, band slot bounds jlo, jhi} from
+    ``row_tensor``; bits (B, R) int8 from ``row_bits``. Returns
+    ex/ey/em/efx/efy/efm (B, R, W) f32 and pm/wx/wy (B, R, W) int8, as
+    ``precompute`` returns them."""
     W = int(width)
+    ks, xoff, jlo, jhi = rows.long().unbind(-1)
+    prob = {"em_gap_x": tables[:5], "em_gap_y": tables[5:10],
+            "em_match": tables[10:].reshape(5, 5)}
     wx, wy = _fb._symbol_windows(sx_pad, sy_pad, xoff, LY, W, ks=ks,
                                  pad_off=pad_off)
     js = torch.arange(W, device=xoff.device)
@@ -285,50 +389,6 @@ def end_rows(prob, ragged_right, slot_ok_L):
     end_vec = torch.where(ragged_right.bool()[:, None],
                           prob["ragged_end"], prob["end"])
     return end_vec[:, :, None] * slot_ok_L[:, None, :]
-
-
-def precompute_window(hmm, sx_pad, sy_pad, frame: dict, LY: int, L: int,
-                      starts, rows: int, width: int, pad_off: int,
-                      base=None, emit=None) -> dict:
-    """Stream prep for windows of ONE long pair, batched as pairs: window
-    i covers global diagonals [starts[i], starts[i] + rows) of the pair's
-    padded frame (counterpart of ``_prep_window`` in
-    cpecan_tpu/ops/fb_segmented.py and ``_prep_one`` in fb_parallel.py).
-
-    sx_pad, sy_pad: (1, pad_off + n + pad_off) int8 symbols of the pair
-    (sy reversed), padded with pad_off sentinels; frame: the pair's
-    x-frame ``xoff``/``delta``/``jlo``/``jhi``, 1-D int64 over all
-    diagonals plus padding rows with an empty band, at least two rows
-    past the last window. starts (n,) int64. base (n,): window i's slot j
-    is global slot j + base[i] (default 0). emit (n, 2): the rows
-    [lo, hi) whose posteriors the pm bits let through (default all of
-    the window's). The row bits of pm (at_end at k == L, bridge for
-    1 <= k < L) and the neighbour diagonals d_{k-1}, d_{k+1}, d_{k+2}
-    come from the global frame.
-
-    Returns ``precompute``'s stream keys (ex .. pm, wx, wy) at (n, rows,
-    width) and (n, rows); a window that starts at 0 and covers a pair's
-    P+1 diagonals gives precompute's rows (bm1/bm0 of the last row aside,
-    which read a diagonal past the window)."""
-    dev = sx_pad.device
-    W = int(width)
-    prob = _fb._prob_params(hmm)
-    ks = starts[:, None] + torch.arange(rows, device=dev)
-    last = frame["xoff"].shape[0] - 1
-    at = lambda key, off=0: frame[key][(ks + off).clamp(0, last)]
-    base = (torch.zeros_like(starts) if base is None else base)[:, None]
-    xoff = at("xoff") + base
-    delta, d_km1, d1, d2 = at("delta"), at("delta", -1), at("delta", 1), \
-        at("delta", 2)
-    jlo, jhi = at("jlo") - base, at("jhi") - base
-    lo, hi = ((ks[:, :1], ks[:, -1:] + 1) if emit is None
-              else (emit[:, :1], emit[:, 1:]))
-    out = streams(prob, sx_pad, sy_pad, LY, pad_off, ks, xoff, jlo, jhi,
-                  row_bits((ks >= lo) & (ks < hi) & (ks >= 1) & (ks <= L),
-                           ks == L, (ks >= 1) & (ks < L)), W)
-    out.update(row_selects(delta, delta + d_km1 - 1, d1, d1 + d2,
-                           d1 + delta - 1))
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -679,16 +739,18 @@ def _check_launch(name: str, S, W: int, nz, tensors: dict) -> None:
 
 
 def kernel_route(kernel: str, device, W: int):
-    """The C entry point that a launch of ``kernel`` ("fwd", "bwd", "exp"
-    or "prep") at band width W takes for tensors on ``device``: None for
-    the CPU (the wrapper runs the plain version), else the shared-memory
-    variant's entry point up to MAX_KERNEL_WIDTH and the wide variant's
-    above (prep has one entry point at every width). The shared-memory
+    """The C entry point that a launch of ``kernel`` ("fwd", "bwd", "exp",
+    "prep" or "rows") at band width W takes for tensors on ``device``:
+    None for the CPU (the wrapper runs the plain version), else the
+    shared-memory variant's entry point up to MAX_KERNEL_WIDTH and the
+    wide variant's above (prep and rows have one entry point at every
+    width). The shared-memory
     entry points pick their own launch plan (``fwd_plan``, ``bwd_plan``,
     ``exp_plan``)."""
     if device.type == "cpu":
         return None
-    wide = "_wide" if W > MAX_KERNEL_WIDTH and kernel != "prep" else ""
+    wide = ("_wide" if W > MAX_KERNEL_WIDTH and kernel not in ("prep", "rows")
+            else "")
     return f"cpecan_wavefront_{kernel}{wide}"
 
 
@@ -711,34 +773,31 @@ def _host_transitions(t, S: int):
 _NULL = ctypes.c_void_p(None)
 
 
-def streams(prob, sx_pad, sy_pad, LY: int, pad_off: int, ks, xoff, jlo, jhi,
-            bits, width: int) -> dict:
+def streams(tables, sx_pad, sy_pad, LY: int, pad_off: int, rows, bits,
+            width: int) -> dict:
     """The slot part of the stream prep: ``streams_reference`` for CPU
     tensors, the CUDA kernel ``wavefront_prep`` for CUDA tensors. Same
-    contract as ``streams_reference``; ``prob`` holds the probability-
-    space tables on the tensors' device (``_fb._prob_params``), which the
-    kernel reads there (no copy to the host)."""
+    contract as ``streams_reference``; the tables, rows and bits are the
+    row part's (``prep_rows``, ``prep_rows_window``), which the kernel
+    reads where they lie."""
     W = int(width)
-    entry = kernel_route("prep", xoff.device, W)
+    entry = kernel_route("prep", rows.device, W)
     if entry is None:
-        return streams_reference(prob, sx_pad, sy_pad, LY, pad_off, ks, xoff,
-                                 jlo, jhi, bits, W)
-    B, R = xoff.shape
+        return streams_reference(tables, sx_pad, sy_pad, LY, pad_off, rows,
+                                 bits, W)
+    B, R = rows.shape[:2]
     f32, i8 = torch.float32, torch.int8
     nx, ny = sx_pad.shape[1], sy_pad.shape[1]
     for key, x in (("sx_pad", sx_pad), ("sy_pad", sy_pad)):
         if x.dim() != 2 or x.shape[0] not in (1, B) or x.shape[1] < W + 1:
             raise ValueError(f"prep: {key} has shape {tuple(x.shape)}, "
                              f"expected (1 or {B}, >= {W + 1})")
-    rows = torch.stack([ks.expand(B, R), xoff, jlo, jhi], dim=-1).to(torch.int32)
     _check_launch("prep", None, W, (), {
         "sx_pad": (sx_pad, i8, tuple(sx_pad.shape)),
         "sy_pad": (sy_pad, i8, tuple(sy_pad.shape)),
         "rows": (rows, torch.int32, (B, R, 4)), "bits": (bits, i8, (B, R)),
-        "em_gap_x": (prob["em_gap_x"], f32, (5,)),
-        "em_gap_y": (prob["em_gap_y"], f32, (5,)),
-        "em_match": (prob["em_match"], f32, (5, 5))})
-    dev = xoff.device
+        "tables": (tables, f32, (_TABLES,))})
+    dev = rows.device
     out = {k: torch.empty(B, R, W, dtype=f32, device=dev)
            for k in ("ex", "ey", "em", "efx", "efy", "efm")}
     out.update({k: torch.empty(B, R, W, dtype=i8, device=dev)
@@ -746,11 +805,141 @@ def streams(prob, sx_pad, sy_pad, LY: int, pad_off: int, ks, xoff, jlo, jhi,
     if B * R == 0:
         return out
     stride = lambda x: 0 if x.shape[0] == 1 else x.shape[1]
+    at = lambda i: ctypes.c_void_p(tables.data_ptr() + 4 * i)
     _launch("prep", entry, dev, _ptr(sx_pad), _ptr(sy_pad), stride(sx_pad),
             stride(sy_pad), nx, ny, int(LY), int(pad_off), _ptr(rows),
-            _ptr(bits), _ptr(prob["em_gap_x"]), _ptr(prob["em_gap_y"]),
-            _ptr(prob["em_match"]), *(_ptr(v) for v in out.values()), B, R, W)
+            _ptr(bits), at(0), at(5), at(10),
+            *(_ptr(v) for v in out.values()), B, R, W)
     LAUNCHES["prep"] += 1
+    return out
+
+
+_TABLES = 35  # emission_tables' length
+
+# element types of the row kernel's integer inputs (load_int in
+# csrc/wavefront.cu): the size in bytes, -1 for an unsigned byte
+_INT_TYPES = {torch.int8: 1, torch.uint8: -1, torch.bool: -1,
+              torch.int16: 2, torch.int32: 4, torch.int64: 8}
+
+
+def _int_type(key: str, x) -> int:
+    if x.dtype not in _INT_TYPES:
+        raise TypeError(f"rows: {key} is {x.dtype}, expected an integer or "
+                        f"bool dtype")
+    return _INT_TYPES[x.dtype]
+
+
+def _model_specs(hmm) -> dict:
+    f32, S = torch.float32, hmm.state_number
+    specs = {k: (getattr(hmm, k), f32, (S,))
+             for k in ("start", "ragged_start", "end", "ragged_end")}
+    specs.update(em_gap_x=(hmm.em_gap_x, f32, (5,)),
+                 em_gap_y=(hmm.em_gap_y, f32, (5,)),
+                 em_match=(hmm.em_match, f32, (5, 5)))
+    return specs
+
+
+def _model_ptrs(hmm) -> list:
+    return [_ptr(getattr(hmm, k)) for k in (
+        "em_gap_x", "em_gap_y", "em_match", "start", "ragged_start", "end",
+        "ragged_end")]
+
+
+def _row_outputs(B: int, R: int, dev) -> dict:
+    """The outputs both forms of the row kernel write: the selects as
+    views of one (8, B, R) int8 tensor, tables, rows and bits."""
+    out = dict(zip(SELECTS, torch.empty(8, B, R, dtype=torch.int8,
+                                        device=dev).unbind(0)))
+    out.update(tables=torch.empty(_TABLES, dtype=torch.float32, device=dev),
+               rows=torch.empty(B, R, 4, dtype=torch.int32, device=dev),
+               bits=torch.empty(B, R, dtype=torch.int8, device=dev))
+    return out
+
+
+def prep_rows(hmm, sx, sy, offsets, widths, lx, ly, ragged_left,
+              ragged_right, width: int) -> dict:
+    """The row part of ``precompute``: ``rows_reference`` for CPU tensors,
+    the CUDA kernel ``wavefront_rows`` (batch form) for CUDA tensors. Same
+    contract as ``rows_reference``; the integer inputs may have any
+    integer (or bool) dtype, as there."""
+    W = int(width)
+    entry = kernel_route("rows", offsets.device, W)
+    if entry is None:
+        return rows_reference(hmm, sx, sy, offsets, widths, lx, ly,
+                              ragged_left, ragged_right, W)
+    S = hmm.state_number
+    B, R = offsets.shape
+    LX, LY = sx.shape[1], sy.shape[1]
+    inputs = {"sx": (sx, (B, LX)), "sy": (sy, (B, LY)),
+              "offsets": (offsets, (B, R)), "widths": (widths, (B, R)),
+              "lx": (lx, (B,)), "ly": (ly, (B,)),
+              "ragged_left": (ragged_left, (B,)),
+              "ragged_right": (ragged_right, (B,))}
+    types = [_int_type(k, x) for k, (x, _) in inputs.items()]
+    specs = {k: (x, x.dtype, shape) for k, (x, shape) in inputs.items()}
+    specs.update(_model_specs(hmm))
+    _check_launch("rows", S, W, (), specs)
+    if R < 1:
+        raise ValueError("rows: a band of no diagonals")
+    dev = offsets.device
+    i8, i64, f32 = torch.int8, torch.int64, torch.float32
+    out = _row_outputs(B, R, dev)
+    out.update(
+        sx_pad=torch.empty(B, LX + 2 * (W + 1), dtype=i8, device=dev),
+        sy_pad=torch.empty(B, LY + 2 * (W + 1), dtype=i8, device=dev),
+        **{k: torch.empty(B, R, dtype=i64, device=dev)
+           for k in ("xoff", "jlo", "jhi")},
+        L=torch.empty(B, dtype=i64, device=dev),
+        F0=torch.empty(B, S, W, dtype=f32, device=dev),
+        m0log=torch.empty(B, dtype=f32, device=dev),
+        end_row=torch.empty(B, S, W, dtype=f32, device=dev))
+    if B == 0:
+        return out
+    sel = out["a"]  # the first view: the (8, B, R) tensor's start
+    _launch("rows", entry, dev, S, *_model_ptrs(hmm),
+            *(_ptr(x) for x, _ in inputs.values()), *types, LX, LY,
+            *[_NULL] * 4, 0, _NULL, _NULL, _NULL, 0,
+            *map(_ptr, (out["tables"], out["rows"], out["bits"], sel,
+                        out["sx_pad"], out["sy_pad"], out["xoff"], out["jlo"],
+                        out["jhi"], out["L"], out["F0"], out["m0log"],
+                        out["end_row"])), B, R, W)
+    LAUNCHES["rows"] += 1
+    return out
+
+
+def prep_rows_window(hmm, frame: dict, L: int, starts, rows: int, base=None,
+                     emit=None) -> dict:
+    """The row part of ``precompute_window``: ``rows_window_reference`` for
+    CPU tensors, the CUDA kernel ``wavefront_rows`` (window form) for CUDA
+    tensors. Same contract as ``rows_window_reference``; the frame,
+    starts, base and emit are int64."""
+    entry = kernel_route("rows", starts.device, 1)
+    if entry is None:
+        return rows_window_reference(hmm, frame, L, starts, rows, base, emit)
+    n, R = starts.shape[0], int(rows)
+    nf = frame["xoff"].shape[0]
+    i64 = torch.int64
+    specs = {k: (frame[k], i64, (nf,)) for k in ("xoff", "delta", "jlo", "jhi")}
+    specs["starts"] = (starts, i64, (n,))
+    if base is not None:
+        specs["base"] = (base, i64, (n,))
+    if emit is not None:
+        specs["emit"] = (emit, i64, (n, 2))
+    specs.update(_model_specs(hmm))
+    _check_launch("rows", None, 1, (), specs)
+    if nf < 1:
+        raise ValueError("rows: an empty frame")
+    out = _row_outputs(n, R, starts.device)
+    if n * R == 0:
+        return out
+    opt = lambda x: _NULL if x is None else _ptr(x)
+    _launch("rows", entry, starts.device, hmm.state_number, *_model_ptrs(hmm),
+            *[_NULL] * 8, *[0] * 8, 0, 0,
+            *(_ptr(frame[k]) for k in ("xoff", "delta", "jlo", "jhi")), nf,
+            _ptr(starts), opt(base), opt(emit), int(L),
+            _ptr(out["tables"]), _ptr(out["rows"]), _ptr(out["bits"]),
+            _ptr(out["a"]), *[_NULL] * 9, n, R, 1)
+    LAUNCHES["rows"] += 1
     return out
 
 

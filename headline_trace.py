@@ -7,13 +7,13 @@ on seed 0: B=256 anchored 1 kb pairs, W=128, the 5-state model), runs two
 warm-up passes of fb_batch.fb_pass_batch in posterior_match mode, then
 traces --passes passes with cpecan_tpu_torch.utils.metrics.trace, each
 pass ended by torch.cuda.synchronize(). The parts of a pass are marked
-in this process only, by wrapping fb_wavefront.precompute, streams, fwd
+in this process only, by wrapping fb_wavefront.prep_rows, streams, fwd
 and bwd in torch.profiler.record_function ranges; the path's code is the
 same.
 
-Prints, as a mean per pass: each device kernel's time by part (prep: the
-rest of precompute, its row part; streams: the streams wrapper, the prep
-kernel wavefront_prep and its row tensor; fwd and bwd: the wrappers, the
+Prints, as a mean per pass: each device kernel's time by part (rows: the
+row part of the stream prep, the kernel wavefront_rows; streams: its
+slot part, the kernel wavefront_prep; fwd and bwd: the wrappers, the
 kernel and whatever they allocate; rest: the pass's other ops) and by the
 outermost aten op that launched it; the device's idle gaps inside the
 pass; the bytes the caching allocator handed out in a pass and in one
@@ -39,8 +39,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-PARTS = ("prep", "streams", "fwd", "bwd")
-WRAPPED = {"precompute": "prep", "streams": "streams", "fwd": "fwd",
+PARTS = ("rows", "streams", "fwd", "bwd")
+WRAPPED = {"prep_rows": "rows", "streams": "streams", "fwd": "fwd",
            "bwd": "bwd"}
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -48,7 +48,7 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 @contextlib.contextmanager
 def marked_parts():
-    """fb_wavefront's precompute, streams, fwd and bwd, each wrapped in a
+    """fb_wavefront's prep_rows, streams, fwd and bwd, each wrapped in a
     record_function range named after its part, for the block."""
     from cpecan_tpu_torch.ops import fb_wavefront
 

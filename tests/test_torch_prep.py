@@ -1,7 +1,8 @@
 """The stream prep's slot part, ``fb_wavefront.streams``: its plain route
 against the one-pass torch prep it was split from and against the JAX
 package's ``jax.vmap(_precompute_one)``; its card route (the kernel
-``wavefront_prep``) against the plain route.
+``wavefront_prep``) against the plain route. The row part, the kernel
+``wavefront_rows``, has tests/test_torch_rows.py.
 
 ``_one_pass_precompute`` and ``_one_pass_window`` below are the torch
 prep as one function each (symbol windows, then every (B, R, W) stream
@@ -301,9 +302,10 @@ def test_streams_match_jax_precompute_one(sm_name):
     pad = torch.full((B, W + 1), sent, dtype=torch.int8)
     ks = torch.arange(P1)
     got = wf.streams(
-        _fb._prob_params(hmm), torch.cat([pad, sx_s, pad], 1),
+        wf.emission_tables(_fb._prob_params(hmm)),
+        torch.cat([pad, sx_s, pad], 1),
         torch.cat([pad, torch.flip(sy_s, [1]), pad], 1),
-        sy.shape[1], W + 1, ks, xoff, jlo, jhi,
+        sy.shape[1], W + 1, wf.row_tensor(ks, xoff, jlo, jhi),
         wf.row_bits((ks >= 1) & (ks <= L), ks == L, (ks >= 1) & (ks < L)), W)
     for k in STREAMS:
         assert got[k].dtype == torch.float32
@@ -342,10 +344,11 @@ def test_prep_route_has_one_entry_point(width):
 @pytest.mark.parametrize("window", [False, True])
 def test_device_tensors_launch_the_prep_kernel(monkeypatch, window):
     """On device tensors (meta tensors stand in for the card's) precompute
-    and precompute_window call the prep entry point once each, with the
-    ctypes signature's argument count, the pair strides (0 for a window's
-    one long pair) and the shapes, count one launch and never run the
-    plain streams."""
+    and precompute_window call the row kernel's entry point and then the
+    prep's, once each, with the ctypes signature's argument count, the
+    pair strides (0 for a window's one long pair) and the shapes (the row
+    kernel's batch form with band pointers, its window form with none),
+    count one launch of each and never run a plain version."""
     lib = _StubLibrary()
     monkeypatch.setattr(_kernels, "load", lambda: lib)
     monkeypatch.setattr(wf, "_on_card", lambda x: x.device.type == "meta")
@@ -357,7 +360,9 @@ def test_device_tensors_launch_the_prep_kernel(monkeypatch, window):
     def plain(*a, **k):
         raise AssertionError("the plain streams ran for device tensors")
 
-    monkeypatch.setattr(wf, "streams_reference", plain)
+    for name in ("streams_reference", "rows_reference",
+                 "rows_window_reference"):
+        monkeypatch.setattr(wf, name, plain)
     hmm = _hmm("state_machine5").to("meta")
     wf.reset_launch_counts()
     if window:
@@ -373,12 +378,18 @@ def test_device_tensors_launch_the_prep_kernel(monkeypatch, window):
         B, R, Wd = args[2].shape[0], args[2].shape[1], W
         strides = (args[0].shape[1] + 2 * (W + 1),) * 2
         pad_off, LYs = W + 1, args[1].shape[1]
-    assert [name for name, _ in lib.calls] == ["cpecan_wavefront_prep"]
-    (_, a), = lib.calls
+    assert [name for name, _ in lib.calls] == ["cpecan_wavefront_rows",
+                                               "cpecan_wavefront_prep"]
+    (_, r), (_, a) = lib.calls
     assert a[2:4] == strides
     assert a[6:8] == (LYs, pad_off)
     assert a[-4:-1] == (B, R, Wd)
-    assert wf.LAUNCHES == {**{k: 0 for k in wf.LAUNCHES}, "prep": 1}
+    # the row kernel: the batch form's element types (int32 band and
+    # lengths, bool flags) or the window form's zeros, B and R
+    assert r[16:24] == ((0,) * 8 if window else (4,) * 6 + (-1,) * 2)
+    assert r[-4:-2] == (B, R)
+    assert wf.LAUNCHES == {**{k: 0 for k in wf.LAUNCHES}, "prep": 1,
+                           "rows": 1}
     for k in STREAMS:
         assert out[k].shape == (B, R, Wd) and out[k].dtype == torch.float32
     for k in ("pm", "wx", "wy"):
@@ -437,7 +448,7 @@ def test_prep_kernel_equals_plain_streams_on_card(cuda_device, kind):
             _assert_same(got, want, want, f"window W={Wd} {sorted(kw)}")
 
     g = torch.Generator().manual_seed(0)
-    prob = _fb._prob_params(hmm)
+    tables = wf.emission_tables(_fb._prob_params(hmm))
     for Wd in (32, 41):
         B, R = 3, 40
         rnd = lambda lo, hi: torch.randint(lo, hi, (B, R), generator=g)
@@ -447,10 +458,11 @@ def test_prep_kernel_equals_plain_streams_on_card(cuda_device, kind):
         rows = [rnd(-80, 200), rnd(-80, 200), jlo, jlo + rnd(-3, Wd)]
         bits = wf.row_bits(rnd(0, 2) == 1, rnd(0, 2) == 1, rnd(0, 2) == 1)
         on = lambda x: x.to(cuda_device)
-        got = wf.streams(prob, on(sxp), on(syp), 70, Wd + 1,
-                         *map(on, rows), on(bits), Wd)
-        want = wf.streams_reference(prob, on(sxp), on(syp), 70, Wd + 1,
-                                    *map(on, rows), on(bits), Wd)
+        rows = on(wf.row_tensor(*rows))
+        got = wf.streams(tables, on(sxp), on(syp), 70, Wd + 1, rows,
+                         on(bits), Wd)
+        want = wf.streams_reference(tables, on(sxp), on(syp), 70, Wd + 1,
+                                    rows, on(bits), Wd)
         _assert_same(got, want, SLOT_KEYS, f"clamps W={Wd}")
 
 
@@ -458,18 +470,20 @@ def test_prep_kernel_equals_plain_streams_on_card(cuda_device, kind):
 def test_prep_wrapper_rejects_what_the_kernel_cannot_run(cuda_device):
     hmm = _hmm("state_machine5").to(cuda_device)
     sx, sy, offsets, widths, lx, ly, rl, rr = _batch(cuda_device)
-    prob = _fb._prob_params(hmm)
+    tables = wf.emission_tables(_fb._prob_params(hmm))
     xoff, _, jlo, jhi = _fb._frame_from_band(offsets, widths)
     ks = torch.arange(xoff.shape[1], device=cuda_device)
     bits = wf.row_bits(ks >= 1, ks == 5, ks < 5).expand(xoff.shape).contiguous()
     pad = lambda x: torch.nn.functional.pad(x.to(torch.int8), (W + 1, W + 1),
                                             value=5)
-    args = [prob, pad(sx), pad(sy), sy.shape[1], W + 1, ks, xoff, jlo, jhi,
-            bits, W]
+    rows = wf.row_tensor(ks, xoff, jlo, jhi)
+    args = [tables, pad(sx), pad(sy), sy.shape[1], W + 1, rows, bits, W]
     wf.streams(*args)
     with pytest.raises(TypeError):  # symbols of another type
-        wf.streams(prob, pad(sx).long(), *args[2:])
+        wf.streams(tables, pad(sx).long(), *args[2:])
+    with pytest.raises(TypeError):  # rows of another type
+        wf.streams(*args[:5], rows.long(), *args[6:])
     with pytest.raises(ValueError):  # a CPU tensor among the card's
-        wf.streams(*args[:9], bits.cpu(), W)
+        wf.streams(*args[:6], bits.cpu(), W)
     with pytest.raises(ValueError):  # symbol rows neither 1 nor B
-        wf.streams(prob, pad(sx)[:2], *args[2:])
+        wf.streams(tables, pad(sx)[:2], *args[2:])
