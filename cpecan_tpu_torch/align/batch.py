@@ -194,12 +194,12 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
 
     with metrics.stage("host_prep"):
         tasks = _expand_jobs(jobs, p)
-    hmm = PairHMM.from_state_machine(sm).to(device)
+        bands = [_band_of(t, p) for t in tasks]
+        widths = [_width_bucket(band.frame_width()) for band in bands]
+    with metrics.stage("fb_pass"):  # the model's copy to the device
+        hmm = PairHMM.from_state_machine(sm).to(device)
     buckets: dict = {}
-    for t in tasks:
-        with metrics.stage("host_prep"):
-            band = _band_of(t, p)
-            W = _width_bucket(band.frame_width())
+    for t, band, W in zip(tasks, bands, widths):
         if should_stream(band.diagonal_number, W):
             with metrics.stage("fb_stream"):
                 for oi, pairs in enumerate(_run_streaming_task(
@@ -216,6 +216,11 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
         """Count -> compact -> decode for everything queued: only the
         >= threshold entries come back to the host."""
         nonlocal pending, pending_bytes
+        if pending and device.type == "cuda":
+            # every queued launch precedes the first count in stream
+            # order: wait for them here, apart from the host's work
+            with metrics.stage("device_wait"):
+                torch.cuda.current_stream(device).synchronize()
         for items, offs, out in pending:
             P1, Wp = out[keys[0]].shape[1:]
             for oi, k in enumerate(keys):
@@ -269,9 +274,8 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
             if pending_bytes >= _DENSE_BUDGET:
                 flush()
         flush()
-
-    merged = [[pairs_mod.concat_pairs(job_lists) for job_lists in res]
-              for res in results]
+        merged = [[pairs_mod.concat_pairs(job_lists) for job_lists in res]
+                  for res in results]
     if mode == "posterior_match":
         return merged[0]
     return list(zip(*merged))

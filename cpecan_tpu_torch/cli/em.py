@@ -31,6 +31,7 @@ from cpecan_tpu_torch.cli.realign import read_sequences, resolve_device
 from cpecan_tpu_torch.parallel.mesh import (
     DEFAULT_TIMEOUT_S, data_mesh, initialize_distributed,
     shutdown_distributed)
+from cpecan_tpu_torch.utils import metrics
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -156,6 +157,9 @@ def _train(args) -> int:
     em_mod.expectation_maximisation_trials(
         sequences, cigars, args.outputModel, options, mesh=mesh,
         device=device)
+    if metrics.enabled():
+        for line in metrics.report_lines():
+            print(f"metrics: {line}", file=sys.stderr)
     return 0
 
 

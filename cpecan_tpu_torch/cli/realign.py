@@ -15,6 +15,7 @@ Usage: python -m cpecan_tpu_torch.cli.realign [options] seq1.fasta [...]
 from __future__ import annotations
 
 import argparse
+import itertools
 import sys
 
 import numpy as np
@@ -271,54 +272,63 @@ def main(argv=None, stdin=None, stdout=None) -> int:
 
     def emit_record(pa, sub_x, sub_y, anchors, aligned,
                     shift1, flip1, shift2, flip2, gaps=None):
-        if args.outputAllPosteriorProbs:
-            write_posterior_probs(
-                args.outputAllPosteriorProbs, aligned,
-                shift1, flip1, pa.end1 - pa.start1,
-                shift2, flip2, pa.end2 - pa.start2)
+        posteriors = aligned
+        with metrics.stage("decode"):
+            if args.rescoreOriginalAlignment:
+                aligned = score_anchor_pairs(anchors, aligned,
+                                             p.diagonalExpansion)
+            elif args.mea:
+                gap_x, gap_y = gaps
+                alignment, _score = mea_decode(
+                    aligned, gap_x, gap_y, sub_x, sub_y, p.gapGamma)
+                aligned = mea_mod.left_shift_alignment(alignment, sub_x, sub_y)
+            else:
+                aligned = pairs_mod.reweight_aligned_pairs(
+                    aligned, len(sub_x), len(sub_y), p.gapGamma)
+                aligned = filter_pairwise_alignment_to_make_pairs_ordered(
+                    aligned, sub_x, sub_y, args.matchGamma)
 
-        if args.rescoreOriginalAlignment:
-            aligned = score_anchor_pairs(anchors, aligned, p.diagonalExpansion)
-        elif args.mea:
-            gap_x, gap_y = gaps
-            alignment, _score = mea_decode(
-                aligned, gap_x, gap_y, sub_x, sub_y, p.gapGamma)
-            aligned = mea_mod.left_shift_alignment(alignment, sub_x, sub_y)
-        else:
-            aligned = pairs_mod.reweight_aligned_pairs(
-                aligned, len(sub_x), len(sub_y), p.gapGamma)
-            aligned = filter_pairwise_alignment_to_make_pairs_ordered(
-                aligned, sub_x, sub_y, args.matchGamma)
+            score = pa.score
+            if args.rescoreByPosteriorProb:
+                score = pairs_mod.score_by_posterior_probability(
+                    len(sub_x), len(sub_y), aligned)
+            elif args.rescoreByPosteriorProbIgnoringGaps:
+                score = pairs_mod.score_by_posterior_probability_ignoring_gaps(
+                    aligned)
+            elif args.rescoreByIdentity:
+                score = pairs_mod.score_by_identity(sub_x, sub_y, aligned)
+            elif args.rescoreByIdentityIgnoringGaps:
+                score = pairs_mod.score_by_identity_ignoring_gaps(
+                    sub_x, sub_y, aligned)
 
-        score = pa.score
-        if args.rescoreByPosteriorProb:
-            score = pairs_mod.score_by_posterior_probability(
-                len(sub_x), len(sub_y), aligned)
-        elif args.rescoreByPosteriorProbIgnoringGaps:
-            score = pairs_mod.score_by_posterior_probability_ignoring_gaps(aligned)
-        elif args.rescoreByIdentity:
-            score = pairs_mod.score_by_identity(sub_x, sub_y, aligned)
-        elif args.rescoreByIdentityIgnoringGaps:
-            score = pairs_mod.score_by_identity_ignoring_gaps(sub_x, sub_y, aligned)
+        with metrics.stage("cigar_out"):
+            # the undecoded dump first: both may name one file
+            if args.outputAllPosteriorProbs:
+                write_posterior_probs(
+                    args.outputAllPosteriorProbs, posteriors,
+                    shift1, flip1, pa.end1 - pa.start1,
+                    shift2, flip2, pa.end2 - pa.start2)
+            if args.outputPosteriorProbs:
+                write_posterior_probs(
+                    args.outputPosteriorProbs, aligned,
+                    shift1, flip1, pa.end1 - pa.start1,
+                    shift2, flip2, pa.end2 - pa.start2)
 
-        if args.outputPosteriorProbs:
-            write_posterior_probs(
-                args.outputPosteriorProbs, aligned,
-                shift1, flip1, pa.end1 - pa.start1,
-                shift2, flip2, pa.end2 - pa.start2)
+            aligned = pairs_mod.sort_pairs(aligned)
+            rpa = cigar_io.aligned_pairs_to_alignment(
+                aligned, pa.contig1, pa.contig2, 0, pa.end1, 0, pa.end2, score)
+            rpa.start1, rpa.end1, rpa.strand1 = rebase(
+                rpa.start1, rpa.end1, rpa.strand1, shift1, flip1)
+            rpa.start2, rpa.end2, rpa.strand2 = rebase(
+                rpa.start2, rpa.end2, rpa.strand2, shift2, flip2)
+            rpa.check()
 
-        aligned = pairs_mod.sort_pairs(aligned)
-        rpa = cigar_io.aligned_pairs_to_alignment(
-            aligned, pa.contig1, pa.contig2, 0, pa.end1, 0, pa.end2, score)
-        rpa.start1, rpa.end1, rpa.strand1 = rebase(rpa.start1, rpa.end1, rpa.strand1, shift1, flip1)
-        rpa.start2, rpa.end2, rpa.strand2 = rebase(rpa.start2, rpa.end2, rpa.strand2, shift2, flip2)
-        rpa.check()
-
-        if args.splitIndelsLongerThanThis != -1:
-            for sub_pa in split_pairwise_alignment(rpa, args.splitIndelsLongerThanThis):
-                cigar_io.cigar_write(stdout, sub_pa)
-        else:
-            cigar_io.cigar_write(stdout, rpa)
+            if args.splitIndelsLongerThanThis != -1:
+                for sub_pa in split_pairwise_alignment(
+                        rpa, args.splitIndelsLongerThanThis):
+                    cigar_io.cigar_write(stdout, sub_pa)
+            else:
+                cigar_io.cigar_write(stdout, rpa)
 
     def prepare(pa):
         """Per-record preprocessing: subsequences, rebasing, anchors."""
@@ -339,13 +349,12 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                 shift1, flip1, shift2, flip2)
 
     def batches(it, n):
-        group = []
-        for rec in it:
-            group.append(rec)
-            if len(group) >= n:
-                yield group
-                group = []
-        if group:
+        """Groups of n records; reading and parsing each is cigar_in."""
+        while True:
+            with metrics.stage("cigar_in"):
+                group = list(itertools.islice(it, n))
+            if not group:
+                return
             yield group
 
     # prepare group i+1 on a worker thread while group i's device batch

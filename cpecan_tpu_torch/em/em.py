@@ -247,13 +247,14 @@ def expectation_step(sm: StateMachine, tasks: list,
                 band.widths, len(t.sub_x), len(t.sub_y), t.ragged_left,
                 t.ragged_right, "expectation", W,
                 fb_streaming.window_rows(p), fb_parallel.burnin_rows(p))
-        hmm.transitions += out["trans"]
-        hmm.emissions += out["emis"]
-        L = band.diagonal_number
-        cf = np.cumsum(out["mf"][: L + 1])
-        cb = np.cumsum(out["mb"][: L + 1][::-1])[::-1]
-        hmm.likelihood += float(
-            np.sum(out["total_raw"][1 : L + 1] + cf[1:] + cb[1:]))
+        with metrics.stage("em_counts"):
+            hmm.transitions += out["trans"]
+            hmm.emissions += out["emis"]
+            L = band.diagonal_number
+            cf = np.cumsum(out["mf"][: L + 1])
+            cb = np.cumsum(out["mb"][: L + 1][::-1])[::-1]
+            hmm.likelihood += float(
+                np.sum(out["total_raw"][1 : L + 1] + cf[1:] + cb[1:]))
         metrics.add("dp_cells", int(band.widths.sum()))
         metrics.add("streamed_chunks", 1)
     for (P, W), items in buckets.items():
@@ -270,21 +271,27 @@ def expectation_step(sm: StateMachine, tasks: list,
                 args = [a.to(device) for a in args]
             out = fb_batch.fb_pass_batch(
                 model, *args, mode="expectation", width=W, mesh=mesh)
+            if device.type == "cuda":
+                # the copies below wait for the launches anyway: wait here,
+                # apart from the copies' own time
+                with metrics.stage("device_wait"):
+                    torch.cuda.current_stream(device).synchronize()
             out = {k: v.cpu().numpy().astype(np.float64)
                    for k, v in out.items()}
 
-        hmm.transitions += out["trans"]
-        hmm.emissions += out["emis"]
-        # likelihood: per-diagonal totals recombined in float64 on host
-        mf, mb, totals = out["mf"], out["mb"], out["total_raw"]
-        for i in range(B):
-            L = int(lx[i] + ly[i])
-            if L == 0:
-                continue
-            cf = np.cumsum(mf[i, : L + 1])
-            cb = np.cumsum(mb[i, : L + 1][::-1])[::-1]
-            hmm.likelihood += float(
-                np.sum(totals[i, 1 : L + 1] + cf[1:] + cb[1:]))
+        with metrics.stage("em_counts"):
+            hmm.transitions += out["trans"]
+            hmm.emissions += out["emis"]
+            # likelihood: per-diagonal totals recombined in float64 on host
+            mf, mb, totals = out["mf"], out["mb"], out["total_raw"]
+            for i in range(B):
+                L = int(lx[i] + ly[i])
+                if L == 0:
+                    continue
+                cf = np.cumsum(mf[i, : L + 1])
+                cb = np.cumsum(mb[i, : L + 1][::-1])[::-1]
+                hmm.likelihood += float(
+                    np.sum(totals[i, 1 : L + 1] + cf[1:] + cb[1:]))
 
 
 # ----------------------------------------------------------------- EM loop
@@ -371,8 +378,10 @@ def expectation_maximisation(sequences: dict, cigars: list, output_model: str,
     if is_writer:
         current.save(output_model, precise=True)
 
-    chunks = split_alignments(cigars, options.maxAlignmentLengthPerJob)
-    chunks = sample_chunks(chunks, options.maxAlignmentLengthToSample, rng)
+    with metrics.stage("em_split"):
+        chunks = split_alignments(cigars, options.maxAlignmentLengthPerJob)
+        chunks = sample_chunks(chunks, options.maxAlignmentLengthToSample,
+                               rng)
     local_chunks = process_shard(chunks)
 
     p = options.pairwise_params()
@@ -412,11 +421,12 @@ def expectation_maximisation(sequences: dict, cigars: list, output_model: str,
             expectations.transitions = trans - extra
             expectations.emissions = emis - extra
             expectations.likelihood = float(like[0])
-        new_model = maximisation_step(expectations, current, options)
-        running.append(new_model.likelihood)
-        current = new_model
-        if is_writer:
-            new_model.save(output_model, precise=True)
+        with metrics.stage("em_mstep"):
+            new_model = maximisation_step(expectations, current, options)
+            running.append(new_model.likelihood)
+            current = new_model
+            if is_writer:
+                new_model.save(output_model, precise=True)
         if options.updateTheBand:
             band_device = device if mesh is None else mesh.devices[0]
             local_chunks = [realign_chunk(c, sequences, model=current,

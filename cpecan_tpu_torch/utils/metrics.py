@@ -10,6 +10,36 @@ Counterpart of cpecan_tpu/utils/metrics.py. Its jit-cache count, an
 early warning of shape drift, has no counterpart (the port compiles its
 kernels once); the kernel launch counts take its place in report_lines.
 
+The stages the program opens, by the thread they run on:
+
+- realign CLI (``cli/realign.py``, main thread): ``cigar_in`` (read and
+  parse one group's cigar lines; on a pipe, also the wait for the
+  writer), ``prefetch_wait`` (blocked on the worker's prepared group;
+  ``utils/pipeline.prefetch_map``, so the align CLI's too), then per
+  record ``decode`` (reweight and poset filter, or MEA and left
+  shift, and the ``--rescore*`` scores) and ``cigar_out`` (build, check,
+  split and write the cigar, and the ``--output*PosteriorProbs`` dumps);
+- EM loop (``em/em.py``, main thread): ``em_split`` (split and sample
+  the corpus), ``em_tasks`` (a chunk's tasks), ``em_counts`` (counts and
+  likelihood of a bucket or streamed task), ``em_mstep`` (maximisation
+  and the model file);
+- batch (``align/batch.py``, ``em/em.py``, ``align/pairwise.py``; the
+  caller's thread): ``host_prep`` (bands, buckets, EM's launch inputs;
+  once a batch or bucket), ``fb_pass`` (the copies, launches, readback
+  and sparse decode; in ``align/batch.py`` also the launch inputs, the
+  model's copy and the per-job pair arrays), ``fb_stream`` (a long chunk
+  through a streaming engine), ``device_wait`` (inside ``fb_pass``, CUDA
+  only: the host blocked until the card has run what it queued);
+- ``host_anchoring`` (``align/anchors.py``) and ``msa_merge``
+  (``msa/aligner.py``), on the caller's thread.
+
+The prefetch worker's ``prepare`` opens no stage. Counters: ``dp_cells``,
+``streamed_chunks``, ``stream_windows``, and ``staged_main_s``: the
+seconds the main thread spent inside at least one stage since
+``reset()`` (nested stages once, other threads' stages not at all), so
+that a window less ``staged_main_s`` is the main thread's time that no
+stage names.
+
 Usage:
     with metrics.stage("fb_pass"):
         ...device work...
@@ -32,6 +62,7 @@ from cpecan_tpu_torch.ops import fb_wavefront
 _lock = threading.Lock()
 _times: dict = {}  # name -> [calls, seconds]
 _counters: dict = {}  # name -> value
+_local = threading.local()  # .depth: stages open on this thread
 
 
 def enabled() -> bool:
@@ -41,16 +72,25 @@ def enabled() -> bool:
 @contextlib.contextmanager
 def stage(name: str):
     """Accumulate wall time for a named stage (always on; reporting is
-    opt-in)."""
+    opt-in). The outermost stage on the main thread also adds its time to
+    the ``staged_main_s`` counter."""
+    depth = getattr(_local, "depth", 0)
+    _local.depth = depth + 1
     t0 = time.perf_counter()
     try:
         yield
     finally:
         dt = time.perf_counter() - t0
+        _local.depth = depth
+        outermost = (depth == 0 and threading.current_thread()
+                     is threading.main_thread())
         with _lock:
             e = _times.setdefault(name, [0, 0.0])
             e[0] += 1
             e[1] += dt
+            if outermost:
+                _counters["staged_main_s"] = (
+                    _counters.get("staged_main_s", 0.0) + dt)
 
 
 def add(name: str, value) -> None:

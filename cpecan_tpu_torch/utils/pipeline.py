@@ -13,21 +13,29 @@ from __future__ import annotations
 import collections
 from concurrent.futures import ThreadPoolExecutor
 
+from cpecan_tpu_torch.utils import metrics
+
 
 def prefetch_map(fn, iterable, depth: int = 1):
     """Yield fn(item) for each item in order, computing up to `depth`
     items ahead in a worker thread. A worker exception propagates to the
-    consumer at the corresponding yield."""
+    consumer at the corresponding yield. The consumer's wait for each
+    result is the metrics stage ``prefetch_wait``."""
     assert depth >= 1
     queue: collections.deque = collections.deque()
+
+    def result():
+        with metrics.stage("prefetch_wait"):
+            return queue.popleft().result()
+
     with ThreadPoolExecutor(max_workers=1) as pool:
         try:
             for item in iterable:
                 queue.append(pool.submit(fn, item))
                 if len(queue) > depth:
-                    yield queue.popleft().result()
+                    yield result()
             while queue:
-                yield queue.popleft().result()
+                yield result()
         finally:
             for fut in queue:  # consumer bailed early: drop pending work
                 fut.cancel()
