@@ -1821,9 +1821,9 @@ def _streamed_tasks(jobs, p):
     from cpecan_tpu_torch.ops import fb_streaming
 
     out = []
-    for t in batch._expand_jobs(jobs, p):
-        band = batch._band_of(t, p)
-        W = _width_bucket(band.frame_width())
+    tasks = batch._expand_jobs(jobs, p)
+    for t, band, frame in zip(tasks, *batch._bands_of(tasks, p)):
+        W = _width_bucket(frame)
         if fb_streaming.should_stream(band.diagonal_number, W):
             out.append((t, band, W))
     return sorted(out, key=lambda e: -e[1].diagonal_number)

@@ -29,11 +29,11 @@ import torch
 from cpecan_tpu_torch.config import PairwiseAlignmentParameters
 from cpecan_tpu_torch.models.state_machine import StateMachine
 from cpecan_tpu_torch.ops import pairs as pairs_mod
-from cpecan_tpu_torch.ops.band import construct_band, full_band, pad_band
+from cpecan_tpu_torch.ops.band import full_band, pad_band
 from cpecan_tpu_torch.utils import metrics
 from cpecan_tpu_torch.utils.symbols import encode
 from cpecan_tpu_torch.align.pairwise import (
-    _bucket, _iterate_chunks, _width_bucket)
+    _bucket, _iterate_chunks, _width_bucket, anchored_bands)
 from cpecan_tpu_torch.models.state_machine import PairHMM
 from cpecan_tpu_torch.ops import compact as compact_mod
 from cpecan_tpu_torch.ops import fb_batch, fb_parallel, fb_streaming
@@ -159,17 +159,24 @@ def _expand_jobs(jobs, p):
     return tasks
 
 
-def _band_of(t: _Task, p: PairwiseAlignmentParameters):
-    if t.anchors is None:
-        return full_band(len(t.sub_x), len(t.sub_y))
-    arr = np.asarray(t.anchors if isinstance(t.anchors, np.ndarray)
-                     else list(t.anchors), dtype=np.int64)
-    if arr.ndim == 1:
-        arr = arr.reshape(0, 3)
-    if p.dynamicAnchorExpansion:
-        return construct_band(arr, len(t.sub_x), len(t.sub_y), expansion=None)
-    return construct_band(arr[:, :2], len(t.sub_x), len(t.sub_y),
-                          p.diagonalExpansion)
+def _bands_of(tasks, p: PairwiseAlignmentParameters):
+    """Each task's band and frame width: the anchored tasks' in one
+    construct_bands call, full_band for the rest."""
+    anchored = [t for t in tasks if t.anchors is not None]
+    built, frames = anchored_bands(
+        [t.anchors for t in anchored], [len(t.sub_x) for t in anchored],
+        [len(t.sub_y) for t in anchored], p)
+    built, frames = iter(built), iter(frames.tolist())
+    bands, band_frames = [], []
+    for t in tasks:
+        if t.anchors is None:
+            band = full_band(len(t.sub_x), len(t.sub_y))
+            frame = band.frame_width()
+        else:
+            band, frame = next(built), next(frames)
+        bands.append(band)
+        band_frames.append(frame)
+    return bands, band_frames
 
 
 def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
@@ -194,8 +201,8 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
 
     with metrics.stage("host_prep"):
         tasks = _expand_jobs(jobs, p)
-        bands = [_band_of(t, p) for t in tasks]
-        widths = [_width_bucket(band.frame_width()) for band in bands]
+        bands, frames = _bands_of(tasks, p)
+        widths = [_width_bucket(f) for f in frames]
     with metrics.stage("fb_pass"):  # the model's copy to the device
         hmm = PairHMM.from_state_machine(sm).to(device)
     buckets: dict = {}

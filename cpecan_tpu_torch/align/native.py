@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ host helpers (csrc/host/*.cpp): the
-anchor seeder/chainer, the poset-consistency decoder, the MEA DP and the
-progressive MSA merge.
+anchor seeder/chainer, the poset-consistency decoder, the MEA DP, the
+progressive MSA merge and the band builder.
 
 Counterpart of cpecan_tpu/align/native.py. The shared library is built on
 demand with g++ into the checkout's ``build/cpecan_tpu_torch/`` (the
@@ -26,7 +26,7 @@ import numpy as np
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / "host" / f
                 for f in ("anchors.cpp", "posetfilter.cpp", "mea.cpp",
-                          "progressive.cpp"))
+                          "progressive.cpp", "band.cpp"))
 BUILD_DIR = _PKG.parent / "build" / "cpecan_tpu_torch"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -78,6 +78,12 @@ def _build_and_load():
         ctypes.c_int64, i64p, i64p, f64p,
         ctypes.c_int64, i64p, i64p,
         ctypes.c_double, i64p,
+    ]
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    cdll.cpecan_build_bands.restype = ctypes.c_int64
+    cdll.cpecan_build_bands.argtypes = [
+        ctypes.c_int64, i64p, ctypes.c_int64, i64p, i64p, i64p,
+        ctypes.c_int64, ctypes.c_int64, i64p, i32p, i32p, i64p,
     ]
     return cdll
 
@@ -180,3 +186,24 @@ def progressive_msa(seq_lengths, edge_a, edge_b, edge_w, order_x, order_y,
     if rc != 0:
         raise RuntimeError(f"cpecan_progressive_msa failed rc={rc}")
     return parent
+
+
+def build_bands(anchors, ncols: int, anchor_starts, lx, ly,
+                expansion: int | None, band_starts):
+    """Every pair's band in one call (csrc/host/band.cpp): (offsets,
+    widths, frame_widths), or None where construct_band would reject a
+    pair's anchors (its caller then runs construct_band to raise).
+    anchors: int64 rows of ``ncols`` (x, y[, expansion]) columns, pair i's
+    at [anchor_starts[i], anchor_starts[i+1]); expansion None takes each
+    anchor's from column 2; pair i's diagonals at band_starts[i]."""
+    if not available():
+        raise RuntimeError("native library unavailable")
+    n = len(lx)
+    offsets = np.empty(int(band_starts[-1]), np.int32)
+    widths = np.empty(int(band_starts[-1]), np.int32)
+    frame = np.empty(n, np.int64)
+    rc = _lib.cpecan_build_bands(
+        n, anchors, ncols, anchor_starts, lx, ly, int(expansion is None),
+        0 if expansion is None else int(expansion), band_starts, offsets,
+        widths, frame)
+    return None if rc else (offsets, widths, frame)

@@ -25,7 +25,7 @@ from cpecan_tpu_torch.config import PairwiseAlignmentParameters
 from cpecan_tpu_torch.models.hmm import Hmm
 from cpecan_tpu_torch.models.state_machine import PairHMM, StateMachine
 from cpecan_tpu_torch.ops import fb_batch
-from cpecan_tpu_torch.ops.band import construct_band, pad_band
+from cpecan_tpu_torch.ops.band import construct_bands, pad_band
 from cpecan_tpu_torch.utils import metrics
 from cpecan_tpu_torch.utils.symbols import encode
 
@@ -51,22 +51,23 @@ def _width_bucket(w: int) -> int:
     return ((w + 127) // 128) * 128
 
 
+def anchored_bands(anchor_arrays, lxs, lys, p: PairwiseAlignmentParameters):
+    """ops.band.construct_bands at p's expansion: each anchor's own (the
+    third column) under dynamicAnchorExpansion, else diagonalExpansion."""
+    return construct_bands(anchor_arrays, lxs, lys,
+                           None if p.dynamicAnchorExpansion
+                           else p.diagonalExpansion)
+
+
 def _run_chunk(sm: StateMachine, seq_x: str, seq_y: str, anchors,
                p: PairwiseAlignmentParameters, ragged_left: bool,
                ragged_right: bool, mode: str, device):
     """One banded FB chunk on ``device`` as a batch of one; returns (engine
     outputs of the pair as numpy arrays, band)."""
     lx, ly = len(seq_x), len(seq_y)
-    arr = np.asarray(anchors if isinstance(anchors, np.ndarray)
-                     else list(anchors), dtype=np.int64)
-    if arr.ndim == 1:
-        arr = arr.reshape(0, 3)
-    if p.dynamicAnchorExpansion:
-        band = construct_band(arr, lx, ly, expansion=None)
-    else:
-        band = construct_band(arr[:, :2], lx, ly, p.diagonalExpansion)
+    (band,), (frame,) = anchored_bands([anchors], [lx], [ly], p)
     P = _bucket(band.diagonal_number)
-    W = _width_bucket(band.frame_width())
+    W = _width_bucket(int(frame))
     offsets, widths, L = pad_band(band, P)
 
     sx = np.zeros((1, P), dtype=np.int32)

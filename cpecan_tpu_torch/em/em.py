@@ -55,7 +55,7 @@ from cpecan_tpu_torch.align.pairwise import (
     _bucket, _iterate_chunks, _width_bucket)
 from cpecan_tpu_torch.io import cigar as cigar_io
 from cpecan_tpu_torch.ops import fb_batch, fb_parallel, fb_streaming
-from cpecan_tpu_torch.ops.band import construct_band, pad_band
+from cpecan_tpu_torch.ops.band import construct_bands
 from cpecan_tpu_torch.parallel.mesh import (
     all_sum_across_processes, pad_to_multiple, process_count, process_index,
     process_shard)
@@ -181,11 +181,12 @@ def bucket_tasks(tasks: list, p: PairwiseAlignmentParameters) -> tuple:
     (``fb_streaming.should_stream``)."""
     buckets: dict = {}
     streamed = []
-    for t in tasks:
-        band = construct_band([(a[0], a[1]) for a in t.anchors],
-                              len(t.sub_x), len(t.sub_y), p.diagonalExpansion)
+    bands, frames = construct_bands(
+        [t.anchors for t in tasks], [len(t.sub_x) for t in tasks],
+        [len(t.sub_y) for t in tasks], p.diagonalExpansion)
+    for t, band, frame in zip(tasks, bands, frames.tolist()):
         P = _bucket(band.diagonal_number)
-        W = _width_bucket(band.frame_width())
+        W = _width_bucket(frame)
         if fb_streaming.should_stream(band.diagonal_number, W):
             streamed.append((t, band, W))
         else:
@@ -197,30 +198,45 @@ def bucket_arrays(items: list, P: int, n_dev: int = 1) -> tuple:
     """One bucket's launch inputs (sx, sy, offsets, widths, lx, ly,
     ragged_left, ragged_right) as numpy arrays, padded with zero-length
     pairs to a power of two (few distinct launch shapes), then to a
-    multiple of the mesh's device count n_dev."""
+    multiple of the mesh's device count n_dev. Each item's band rows are
+    ``pad_band(band, P)``'s."""
     B_pad = 1
     while B_pad < len(items):
         B_pad *= 2
     B_pad = pad_to_multiple(B_pad, n_dev)
+    n = len(items)
+    lxs = [len(t.sub_x) for t, _ in items]
+    lys = [len(t.sub_y) for t, _ in items]
     sx = np.zeros((B_pad, P), np.int32)
     sy = np.zeros((B_pad, P), np.int32)
     offsets = np.zeros((B_pad, P + 1), np.int32)
-    widths = np.zeros((B_pad, P + 1), np.int32)
+    widths = np.ones((B_pad, P + 1), np.int32)
     # pad rows: parity-consistent offsets, zero lengths (no contribution)
     offsets[:, 1::2] = 1
-    widths[:] = 1
     lx = np.zeros(B_pad, np.int32)
     ly = np.zeros(B_pad, np.int32)
     rl = np.zeros(B_pad, bool)
     rr = np.zeros(B_pad, bool)
-    for i, (t, band) in enumerate(items):
-        offsets[i], widths[i], _ = pad_band(band, P)
-        sx[i, : len(t.sub_x)] = encode(t.sub_x)
-        sy[i, : len(t.sub_y)] = encode(t.sub_y)
-        lx[i] = len(t.sub_x)
-        ly[i] = len(t.sub_y)
-        rl[i] = t.ragged_left
-        rr[i] = t.ragged_right
+    lx[:n] = lxs
+    ly[:n] = lys
+    rl[:n] = [t.ragged_left for t, _ in items]
+    rr[:n] = [t.ragged_right for t, _ in items]
+    # past an item's last diagonal L, as pad_band pads: that diagonal's
+    # offset plus (k - L) % 2, width 1
+    alt = np.arange(1, P + 2, dtype=np.int32) % 2
+    codes_x = encode("".join(t.sub_x for t, _ in items))
+    codes_y = encode("".join(t.sub_y for t, _ in items))
+    x0 = y0 = 0
+    for i, ((_, band), nx, ny) in enumerate(zip(items, lxs, lys)):
+        L = nx + ny
+        assert L <= P
+        offsets[i, : L + 1] = band.offsets
+        np.add(alt[: P - L], band.offsets[L], out=offsets[i, L + 1:])
+        widths[i, : L + 1] = band.widths
+        sx[i, :nx] = codes_x[x0: x0 + nx]
+        sy[i, :ny] = codes_y[y0: y0 + ny]
+        x0 += nx
+        y0 += ny
     return sx, sy, offsets, widths, lx, ly, rl, rr
 
 

@@ -7,8 +7,9 @@ The parity invariant (xay+xmy) % 2 == 0 holds for every cell; a diagonal's
 cells map to slots j with xmy = offset + 2*j.
 
 The host computes (offsets, widths) once per pair (vectorized numpy over
-anchor segments — no per-diagonal Python loop); device kernels consume the
-tensors. Semantics match the C band math exactly (validated against the
+anchor segments — no per-diagonal Python loop), or for many pairs in one
+native call (construct_bands, csrc/host/band.cpp); device kernels consume
+the tensors. Semantics match the C band math exactly (validated against the
 reference's hand-computed band walk, tests/pairwiseAlignerTest.c:69-132).
 """
 
@@ -17,6 +18,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from cpecan_tpu_torch.align import native
+from cpecan_tpu_torch.utils import metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +155,42 @@ def construct_band(anchor_pairs, lx: int, ly: int, expansion: int | None = None)
     return BandTensors(
         offsets=offsets.astype(np.int32), widths=widths.astype(np.int32), lx=lx, ly=ly
     )
+
+
+def construct_bands(anchor_arrays, lxs, lys, expansion: int | None = None):
+    """Many pairs' bands: ([construct_band(a, lx, ly, expansion) ...],
+    int64 array of their frame_width()s), equal to those bit for bit.
+
+    Each anchor array holds (x, y, ...) rows; with ``expansion`` None its
+    third column is each anchor's expansion. One native call builds every
+    band where the host library is available (the bands are slices of its
+    output; counter ``native_bands``), else construct_band runs per pair.
+    """
+    dynamic = expansion is None
+    ncols = 3 if dynamic else 2
+    arrs = [np.asarray(a, dtype=np.int64) for a in anchor_arrays]
+    arrs = [a.reshape(0, ncols) if a.ndim == 1 else a[:, :ncols]
+            for a in arrs]
+    if (arrs and native.available()
+            and all(a.shape[1] == ncols for a in arrs)):
+        lx = np.asarray(lxs, dtype=np.int64)
+        ly = np.asarray(lys, dtype=np.int64)
+        band_starts = np.zeros(len(arrs) + 1, np.int64)
+        np.cumsum(lx + ly + 1, out=band_starts[1:])
+        anchor_starts = np.zeros(len(arrs) + 1, np.int64)
+        np.cumsum([len(a) for a in arrs], out=anchor_starts[1:])
+        built = native.build_bands(np.concatenate(arrs), ncols, anchor_starts,
+                                   lx, ly, expansion, band_starts)
+        if built is not None:
+            offsets, widths, frames = built
+            metrics.add("native_bands", len(arrs))
+            bounds = band_starts.tolist()
+            return [BandTensors(offsets[s:e], widths[s:e], int(x), int(y))
+                    for s, e, x, y in zip(bounds, bounds[1:], lxs, lys)
+                    ], frames
+    bands = [construct_band(a, int(x), int(y), expansion)
+             for a, x, y in zip(arrs, lxs, lys)]
+    return bands, np.array([b.frame_width() for b in bands], np.int64)
 
 
 def full_band(lx: int, ly: int) -> BandTensors:

@@ -34,7 +34,9 @@ The stages the program opens, by the thread they run on:
   (``msa/aligner.py``), on the caller's thread.
 
 The prefetch worker's ``prepare`` opens no stage. Counters: ``dp_cells``,
-``streamed_chunks``, ``stream_windows``, and ``staged_main_s``: the
+``streamed_chunks``, ``stream_windows``, ``native_bands`` (bands built
+by the native builder, ``ops/band.construct_bands``; 0 on the numpy
+fallback), and ``staged_main_s``: the
 seconds the main thread spent inside at least one stage since
 ``reset()`` (nested stages once, other threads' stages not at all), so
 that a window less ``staged_main_s`` is the main thread's time that no
