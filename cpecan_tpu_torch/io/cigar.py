@@ -128,27 +128,41 @@ def aligned_pairs_to_alignment(pairs, contig1, contig2, start1, end1,
                                start2, end2, score=0.0) -> PairwiseAlignment:
     """Convert an (ordered, strictly increasing in both coords) aligned-pair
     list into a gapped alignment covering [start1,end1) x [start2,end2)
-    (cPecanRealign convertAlignedPairsToPairwiseAlignment, :220-275)."""
-    ops: list[tuple[str, int]] = []
+    (cPecanRealign convertAlignedPairsToPairwiseAlignment, :220-275).
 
-    def add(op, n):
-        if n <= 0:
-            return
-        if ops and ops[-1][0] == op:
-            ops[-1] = (op, ops[-1][1] + n)
-        else:
-            ops.append((op, n))
+    In array operations over the pairs' x and y. Each pair adds an
+    INDEL_X gap, an INDEL_Y gap and one MATCH, and the end gaps follow,
+    zero lengths dropped and equal neighbours merged. Since every gap is
+    followed by a MATCH, only matches merge: a pair with no gap before it
+    extends the previous pair's match run."""
+    import numpy as np
 
-    px, py = start1, start2
-    for p in pairs:
-        x, y = int(p["x"]), int(p["y"])
-        assert x >= px and y >= py, "aligned pairs must be totally ordered"
-        add(INDEL_X, x - px)
-        add(INDEL_Y, y - py)
-        add(MATCH, 1)
-        px, py = x + 1, y + 1
-    add(INDEL_X, end1 - px)
-    add(INDEL_Y, end2 - py)
+    n = len(pairs)
+    x = np.asarray(pairs["x"] if n else (), np.int64)
+    y = np.asarray(pairs["y"] if n else (), np.int64)
+    # the gap before each pair, after the previous pair (or the start)
+    gap_x = np.diff(x, prepend=start1 - 1) - 1
+    gap_y = np.diff(y, prepend=start2 - 1) - 1
+    assert (gap_x >= 0).all() and (gap_y >= 0).all(), \
+        "aligned pairs must be totally ordered"
+    px = int(x[-1]) + 1 if n else start1
+    py = int(y[-1]) + 1 if n else start2
+
+    # the pairs that open a match run: the first, and each after a gap
+    opens = (gap_x > 0) | (gap_y > 0)
+    opens[:1] = True
+    first = np.flatnonzero(opens)
+    # lengths in the op order D, I, M at each run, then the end gaps D, I
+    lens = np.empty(3 * len(first) + 2, np.int64)
+    lens[0:-2:3] = gap_x[first]
+    lens[1:-2:3] = gap_y[first]
+    lens[2:-2:3] = np.diff(first, append=n)
+    lens[-2:] = end1 - px, end2 - py
+    codes = np.tile(np.arange(3, dtype=np.int8), len(first) + 1)[:-1]
+    keep = lens > 0
+    names = (INDEL_X, INDEL_Y, MATCH)
+    ops = [(names[c], m)
+           for c, m in zip(codes[keep].tolist(), lens[keep].tolist())]
 
     return PairwiseAlignment(
         contig1=contig1, start1=start1, end1=end1, strand1=True,
