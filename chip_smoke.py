@@ -272,23 +272,24 @@ def _band_batch(rng, B, P, mode, sm_factory, anchor_every=None,
                 seq_len=SEQ_LEN, width=None):
     """One launch's inputs, shaped as batch_posteriors builds them (at
     band width ``width`` when given: the bands padded out to it)."""
-    from cpecan_tpu_torch.align import batch as port_batch
-    from cpecan_tpu_torch.align.pairwise import _width_bucket
+    from cpecan_tpu_torch.ops import band as port_band
+    from cpecan_tpu_torch.ops.fb_batch import width_bucket
+    from cpecan_tpu_torch.utils.symbols import encode
 
     seqs, bands = [], []
     for _ in range(B):
         x = _ACGT[rng.integers(0, 4, seq_len)].tobytes().decode()
         y = _evolve(x, rng)[:P - seq_len] if evolve else x
         if full:
-            band = port_batch.full_band(len(x), len(y))
+            band = port_band.full_band(len(x), len(y))
         else:
             m = min(len(x), len(y))
-            band = port_batch.construct_band([(i, i) for i in range(
+            band = port_band.construct_band([(i, i) for i in range(
                 anchor_every // 2, m - anchor_every // 2, anchor_every)],
                 len(x), len(y), expansion)
         seqs.append((x, y))
         bands.append(band)
-    W = _width_bucket(max(b.frame_width() for b in bands))
+    W = width_bucket(max(b.frame_width() for b in bands))
     if width is not None:
         if width < W:
             raise ValueError(f"bands need W={W}, above width={width}")
@@ -298,9 +299,9 @@ def _band_batch(rng, B, P, mode, sm_factory, anchor_every=None,
     offs = np.zeros((B, P + 1), np.int32)
     wids = np.zeros((B, P + 1), np.int32)
     for i, ((x, y), band) in enumerate(zip(seqs, bands)):
-        offs[i], wids[i], _ = port_batch.pad_band(band, P, W)
-        sx[i, :len(x)] = port_batch.encode(x)
-        sy[i, :len(y)] = port_batch.encode(y)
+        offs[i], wids[i], _ = port_band.pad_band(band, P, W)
+        sx[i, :len(x)] = encode(x)
+        sy[i, :len(y)] = encode(y)
     lx = np.array([len(x) for x, _ in seqs], np.int32)
     ly = np.array([len(y) for _, y in seqs], np.int32)
     rl = rng.random(B) < 0.5 if ragged else np.zeros(B, bool)
@@ -1316,6 +1317,7 @@ def phase_em_kernel(seqs, cigars, card, summary):
     """wavefront_exp against exp_reference on the EM main path's largest
     launch: the biggest (P, W) bucket of the first EM chunk at the EM
     defaults, built by em.py's own bucketing."""
+    from cpecan_tpu_torch.align import batch
     from cpecan_tpu_torch.em import em as em_mod
     from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
     from cpecan_tpu_torch.ops import fb_wavefront as wf
@@ -1323,9 +1325,9 @@ def phase_em_kernel(seqs, cigars, card, summary):
     opts = em_mod.EmOptions()
     p = opts.pairwise_params()
     chunk = em_mod.split_alignments(cigars, opts.maxAlignmentLengthPerJob)[0][0]
-    buckets, _ = em_mod.bucket_tasks(em_mod.tasks_from_cigars(chunk, seqs, p), p)
+    buckets, _ = batch.plan(em_mod.tasks_from_cigars(chunk, seqs, p), p)
     (P, W), items = max(buckets.items(), key=lambda kv: len(kv[1]))
-    args = [torch.from_numpy(a).cuda() for a in em_mod.bucket_arrays(items, P)]
+    args = [torch.from_numpy(a).cuda() for a in batch.launch_arrays(items, P)]
     hmm = PairHMM.from_state_machine(state_machine5()).cuda()
     _, err, _ = _check_exp(wf, hmm, args, W, f"em_batch_{len(items)}_tasks",
                            card)
@@ -1706,12 +1708,12 @@ def phase_long_kernels(card, sites):
     tensors; the exact engine's scale streams and posteriors against the
     two-pass kernels'. Per site: the error and one window launch's time."""
     from cpecan_tpu_torch.align.anchors import get_anchors
-    from cpecan_tpu_torch.align.pairwise import _width_bucket
     from cpecan_tpu_torch.config import PairwiseAlignmentParameters
     from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
     from cpecan_tpu_torch.ops import fb_parallel
     from cpecan_tpu_torch.ops import fb_wavefront as wf
     from cpecan_tpu_torch.ops.band import construct_band
+    from cpecan_tpu_torch.ops.fb_batch import width_bucket
     from cpecan_tpu_torch.utils.symbols import encode
 
     rng = np.random.default_rng(7)
@@ -1720,7 +1722,7 @@ def phase_long_kernels(card, sites):
     p = PairwiseAlignmentParameters()
     band = construct_band([(int(a[0]), int(a[1])) for a in get_anchors(x, y, p)],
                           len(x), len(y), p.diagonalExpansion)
-    W = _width_bucket(band.frame_width())
+    W = width_bucket(band.frame_width())
     L = len(x) + len(y)
     sm = state_machine5()
     hmm = PairHMM.from_state_machine(sm).cuda()
@@ -1817,16 +1819,9 @@ def _streamed_tasks(jobs, p):
     """The chunks of ``jobs`` that the batch path streams, longest first:
     [(task, band, W)]."""
     from cpecan_tpu_torch.align import batch
-    from cpecan_tpu_torch.align.pairwise import _width_bucket
-    from cpecan_tpu_torch.ops import fb_streaming
 
-    out = []
-    tasks = batch._expand_jobs(jobs, p)
-    for t, band, frame in zip(tasks, *batch._bands_of(tasks, p)):
-        W = _width_bucket(frame)
-        if fb_streaming.should_stream(band.diagonal_number, W):
-            out.append((t, band, W))
-    return sorted(out, key=lambda e: -e[1].diagonal_number)
+    _, streamed = batch.plan(batch.chunk_tasks(jobs, p), p)
+    return sorted(streamed, key=lambda e: -e[1].diagonal_number)
 
 
 def _same_pair_sets(a, b, what):
@@ -1961,13 +1956,14 @@ def phase_long_pair(card, sites):
 def _realign_jobs(seqs, cigars, p):
     """The batch jobs realign builds from cigar records: anchors from the
     cigars' match runs, filtered to exact base matches, ragged ends."""
-    from cpecan_tpu_torch.cli import realign
+    from cpecan_tpu_torch.align import batch
+    from cpecan_tpu_torch.io import cigar as cigar_io
 
     jobs = []
     for c in cigars:
         x, y = seqs[c.contig1], seqs[c.contig2]
-        anchors = realign.filter_anchors_to_matches(
-            realign.cigar_io.alignment_to_anchor_pairs(
+        anchors = batch.filter_anchors_to_matches(
+            cigar_io.alignment_to_anchor_pairs(
                 c, p.constraintDiagonalTrim, p.diagonalExpansion), x, y)
         jobs.append((x, y, anchors, True, True))
     return jobs
@@ -2079,6 +2075,7 @@ def phase_long_em(card, tmp, short_seqs, short_cigars, sites):
     kernel); the exact engine's counts and likelihood on one long chunk
     against the two-pass kernels'; card against CPU (2 iterations) on
     short records whose every chunk is made to stream."""
+    from cpecan_tpu_torch.align import batch
     from cpecan_tpu_torch.em import em as em_mod
     from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
     from cpecan_tpu_torch.ops import fb_parallel, fb_streaming
@@ -2124,7 +2121,7 @@ def phase_long_em(card, tmp, short_seqs, short_cigars, sites):
     del kept
 
     p = em_mod.EmOptions().pairwise_params()
-    _, streamed = em_mod.bucket_tasks(
+    _, streamed = batch.plan(
         em_mod.tasks_from_cigars(lcigars[:1], seqs, p), p)
     t, band, W = max(streamed, key=lambda e: e[1].diagonal_number)
     L = band.diagonal_number

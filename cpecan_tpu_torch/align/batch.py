@@ -1,16 +1,31 @@
-"""Cross-pair batched posterior alignment.
+"""The batch layer: every step from jobs to kernel launches.
 
-Counterpart of cpecan_tpu/align/batch.py. Every chunk produced by
-large-gap splitting (align/split.py) across all jobs becomes one row of a
-(padded diagonals, padded width) bucket; each bucket runs through
-fb_batch.fb_pass_batch once on ``device`` (the CUDA kernels on a GPU),
-the posterior blocks are thresholded and compacted on the device, and
-only the entries above threshold come back to the host, where they
-scatter to their jobs with the chunk coordinate shifts.
+Counterpart of cpecan_tpu/align/batch.py and of the expectation step of
+cpecan_tpu/em/em.py. Every caller of the forward-backward pass goes
+through here:
 
-Chunks too long for the two-pass engine (``fb_streaming.should_stream``)
-run one at a time through the streaming engines (ops/fb_streaming.py):
-on the card the burn-in-parallel engine, on the CPU the exact one.
+  chunk_tasks       jobs -> Tasks: large-gap splitting (align/split.py),
+                    empty chunks dropped
+  plan              Tasks -> bands, grouped by launch shape (P, W); the
+                    chunks too long for the two-pass engine
+                    (``fb_streaming.should_stream``) are set apart
+  launch_arrays     one launch's inputs, padded to its shape, and
+  launch            their fb_batch.fb_pass_batch call
+  stream_task       one long chunk through the streaming engines
+                    (ops/fb_streaming.py): on the card the burn-in-parallel
+                    engine for posteriors, else the exact one
+  batch_posteriors  posterior modes (realign, align, MSA, the pairwise
+                    posterior APIs): each bucket's launches run on
+                    ``device``, the posterior blocks are thresholded and
+                    compacted on the device, and only the entries above
+                    threshold come back to the host, where they scatter
+                    to their jobs with the chunk coordinate shifts
+  expectation_step  expectation mode (EM, realign --outputExpectations,
+                    the pairwise expectation API): each bucket is one
+                    launch, its counts summed into an Hmm in float64
+
+ops/fb_batch.py decides the launch shapes (``diagonal_bucket``,
+``width_bucket``, ``batch_size``).
 
 With a ``parallel.mesh.DataMesh`` the mesh's devices take the place of
 ``device``: each launch's batch is padded to a multiple of the mesh size
@@ -26,32 +41,206 @@ import dataclasses
 import numpy as np
 import torch
 
+from cpecan_tpu_torch.align.split import get_split_points, split_anchors
 from cpecan_tpu_torch.config import PairwiseAlignmentParameters
-from cpecan_tpu_torch.models.state_machine import StateMachine
-from cpecan_tpu_torch.ops import pairs as pairs_mod
-from cpecan_tpu_torch.ops.band import full_band, pad_band
-from cpecan_tpu_torch.utils import metrics
-from cpecan_tpu_torch.utils.symbols import encode
-from cpecan_tpu_torch.align.pairwise import (
-    _bucket, _iterate_chunks, _width_bucket, anchored_bands)
-from cpecan_tpu_torch.models.state_machine import PairHMM
+from cpecan_tpu_torch.models.hmm import Hmm
+from cpecan_tpu_torch.models.state_machine import PairHMM, StateMachine
 from cpecan_tpu_torch.ops import compact as compact_mod
 from cpecan_tpu_torch.ops import fb_batch, fb_parallel, fb_streaming
-from cpecan_tpu_torch.ops.fb_streaming import should_stream
-from cpecan_tpu_torch.parallel.mesh import pad_to_multiple
+from cpecan_tpu_torch.ops import pairs as pairs_mod
+from cpecan_tpu_torch.ops.band import construct_bands, full_band
+from cpecan_tpu_torch.utils import metrics
+from cpecan_tpu_torch.utils.logmath import PAIR_ALIGNMENT_PROB_1
+from cpecan_tpu_torch.utils.symbols import encode, reverse_complement
 
 
 @dataclasses.dataclass
-class _Task:
+class Task:
+    """One banded forward-backward sub-problem: the chunk of job ``job``
+    that starts at (x1, y1) of its sequences. ``anchors`` None runs it
+    full-band."""
     job: int
     x1: int
     y1: int
     sub_x: str
     sub_y: str
-    anchors: list
+    anchors: object
     ragged_left: bool
     ragged_right: bool
 
+
+# ------------------------------------------------------------------ jobs
+
+def get_sub_sequence(seq: str, start: int, end: int, strand: bool) -> str:
+    """Forward-strand subsequence; minus strand reads [end, start) and
+    reverse-complements (reference getSubSequence :232-240)."""
+    if strand:
+        return seq[start:end]
+    return reverse_complement(seq[end:start])
+
+
+def filter_anchors_to_matches(anchors, seq_x: str, seq_y: str):
+    """Keep anchors whose bases match exactly (never N) — reference matchFn
+    :277-281.  Vectorized: one bytes-level gather per sequence instead of
+    a per-anchor Python loop (realign feeds one anchor per matched base)."""
+    anchors = np.asarray(anchors, dtype=np.int64)
+    if anchors.ndim == 1 or len(anchors) == 0:
+        return anchors.reshape(0, 3)
+    bx = np.frombuffer(seq_x.upper().encode("latin-1"), np.uint8)
+    by = np.frombuffer(seq_y.upper().encode("latin-1"), np.uint8)
+    cx = bx[anchors[:, 0]]
+    keep = (cx == by[anchors[:, 1]]) & (cx != ord("N"))
+    return anchors[keep]
+
+
+def _iterate_chunks(seq_x: str, seq_y: str, anchor_pairs,
+                    p: PairwiseAlignmentParameters,
+                    ragged_left: bool, ragged_right: bool):
+    """Split by large gaps and yield (rect, local anchors, ragged flags)
+    (reference getPosteriorProbsWithBandingSplittingAlignmentsByLargeGaps
+    :1273-1326: ragged flags propagate to the outermost chunks only)."""
+    lx, ly = len(seq_x), len(seq_y)
+    split_points = get_split_points(
+        anchor_pairs, lx, ly, p.splitMatrixBiggerThanThis, ragged_left,
+        ragged_right)
+    n = len(split_points)
+    for i, (rect, local_anchors) in enumerate(
+            split_anchors(anchor_pairs, split_points)):
+        rl = ragged_left or i > 0
+        rr = ragged_right or i < n - 1
+        yield rect, local_anchors, rl, rr
+
+
+def chunk_tasks(jobs, p: PairwiseAlignmentParameters) -> list:
+    """Jobs (seq_x, seq_y, anchor_pairs, ragged_left, ragged_right) ->
+    the Tasks of their non-empty chunks, in job order. A job with
+    anchor_pairs None is one full-band task (the reference's unbanded
+    small-matrix path: the whole rectangle, no splitting)."""
+    tasks = []
+    for ji, (seq_x, seq_y, anchor_pairs, rl0, rr0) in enumerate(jobs):
+        if anchor_pairs is None:
+            tasks.append(Task(ji, 0, 0, seq_x, seq_y, None, rl0, rr0))
+            continue
+        for (x1, y1, x2, y2), local, rl, rr in _iterate_chunks(
+                seq_x, seq_y, anchor_pairs, p, rl0, rr0):
+            if x2 - x1 == 0 and y2 - y1 == 0:
+                continue
+            tasks.append(Task(ji, x1, y1, seq_x[x1:x2], seq_y[y1:y2],
+                              local, rl, rr))
+    return tasks
+
+
+# ----------------------------------------------------------------- bands
+
+def build_bands(tasks, p: PairwiseAlignmentParameters) -> list:
+    """Each task's (band, frame width): the anchored tasks' in one
+    ``construct_bands`` call at p's expansion (each anchor's own, its
+    third column, under dynamicAnchorExpansion, else diagonalExpansion),
+    full_band for the rest."""
+    anchored = [t for t in tasks if t.anchors is not None]
+    built, frames = construct_bands(
+        [t.anchors for t in anchored], [len(t.sub_x) for t in anchored],
+        [len(t.sub_y) for t in anchored],
+        None if p.dynamicAnchorExpansion else p.diagonalExpansion)
+    built, frames = iter(built), iter(frames.tolist())
+    out = []
+    for t in tasks:
+        if t.anchors is None:
+            band = full_band(len(t.sub_x), len(t.sub_y))
+            out.append((band, band.frame_width()))
+        else:
+            out.append((next(built), next(frames)))
+    return out
+
+
+def plan(tasks, p: PairwiseAlignmentParameters) -> tuple:
+    """Tasks with their bands, grouped by launch shape: ({(P, W): [(task,
+    band), ...]}, streamed), the buckets in the order of their first
+    task, where streamed lists the (task, band, W) of the tasks too long
+    for the two-pass engine."""
+    buckets: dict = {}
+    streamed = []
+    for t, (band, frame) in zip(tasks, build_bands(tasks, p)):
+        W = fb_batch.width_bucket(frame)
+        if fb_streaming.should_stream(band.diagonal_number, W):
+            streamed.append((t, band, W))
+        else:
+            P = fb_batch.diagonal_bucket(band.diagonal_number)
+            buckets.setdefault((P, W), []).append((t, band))
+    return buckets, streamed
+
+
+# -------------------------------------------------------------- launches
+
+def launch_arrays(items: list, P: int, n_dev: int = 1) -> tuple:
+    """One launch's inputs (sx, sy, offsets, widths, lx, ly, ragged_left,
+    ragged_right) as numpy arrays, padded with zero-length pairs to
+    ``fb_batch.batch_size(len(items), n_dev)``. Each item's band rows are
+    ``pad_band(band, P)``'s."""
+    B_pad = fb_batch.batch_size(len(items), n_dev)
+    n = len(items)
+    lxs = [len(t.sub_x) for t, _ in items]
+    lys = [len(t.sub_y) for t, _ in items]
+    sx = np.zeros((B_pad, P), np.int32)
+    sy = np.zeros((B_pad, P), np.int32)
+    offsets = np.zeros((B_pad, P + 1), np.int32)
+    widths = np.ones((B_pad, P + 1), np.int32)
+    # pad rows: parity-consistent offsets, zero lengths (no contribution)
+    offsets[:, 1::2] = 1
+    lx = np.zeros(B_pad, np.int32)
+    ly = np.zeros(B_pad, np.int32)
+    rl = np.zeros(B_pad, bool)
+    rr = np.zeros(B_pad, bool)
+    lx[:n] = lxs
+    ly[:n] = lys
+    rl[:n] = [t.ragged_left for t, _ in items]
+    rr[:n] = [t.ragged_right for t, _ in items]
+    # past an item's last diagonal L, as pad_band pads: that diagonal's
+    # offset plus (k - L) % 2, width 1
+    alt = np.arange(1, P + 2, dtype=np.int32) % 2
+    codes_x = encode("".join(t.sub_x for t, _ in items))
+    codes_y = encode("".join(t.sub_y for t, _ in items))
+    x0 = y0 = 0
+    for i, ((_, band), nx, ny) in enumerate(zip(items, lxs, lys)):
+        L = nx + ny
+        assert L <= P
+        offsets[i, : L + 1] = band.offsets
+        np.add(alt[: P - L], band.offsets[L], out=offsets[i, L + 1:])
+        widths[i, : L + 1] = band.widths
+        sx[i, :nx] = codes_x[x0: x0 + nx]
+        sy[i, :ny] = codes_y[y0: y0 + ny]
+        x0 += nx
+        y0 += ny
+    return sx, sy, offsets, widths, lx, ly, rl, rr
+
+
+def launch(hmm, arrays, mode: str, W: int, device, mesh=None) -> dict:
+    """fb_batch.fb_pass_batch on launch_arrays' output, the arrays copied
+    to ``device``; with a mesh, each shard goes from the host to its
+    device."""
+    args = [torch.from_numpy(a) for a in arrays]
+    if mesh is None:
+        args = [a.to(device) for a in args]
+    return fb_batch.fb_pass_batch(hmm, *args, mode=mode, width=W, mesh=mesh)
+
+
+def stream_task(hmm, t: Task, band, W: int, p: PairwiseAlignmentParameters,
+                mode: str) -> dict:
+    """One long chunk through the streaming engine on the PairHMM's
+    device, in fixed memory for any chunk length; returns
+    ``fb_streaming.fb_pass_streaming``'s outputs."""
+    out = fb_streaming.fb_pass_streaming(
+        hmm, encode(t.sub_x), encode(t.sub_y), band.offsets, band.widths,
+        len(t.sub_x), len(t.sub_y), t.ragged_left, t.ragged_right, mode, W,
+        fb_streaming.window_rows(p), fb_parallel.burnin_rows(p),
+        threshold=p.threshold)
+    metrics.add("dp_cells", int(band.widths.sum()))
+    metrics.add("streamed_chunks", 1)
+    metrics.add("stream_windows", out["windows"])
+    return out
+
+
+# ------------------------------------------------------------ posteriors
 
 def _count_above(post, thr) -> int:
     """Per-launch entry count (sizes the compaction's capacity)."""
@@ -69,8 +258,6 @@ def _compact_above(post, thr, cap):
 def _sparse_to_pairs_batch(idx, vals, offs, P1, W, items, res_one):
     """Vectorized host decode of one launch's compacted entries into
     per-job pair arrays (addPosteriorProb semantics)."""
-    from cpecan_tpu_torch.utils.logmath import PAIR_ALIGNMENT_PROB_1
-
     sel = idx >= 0
     idx = idx[sel].astype(np.int64)
     vals = vals[sel]
@@ -95,25 +282,9 @@ def _sparse_to_pairs_batch(idx, vals, offs, P1, W, items, res_one):
             ys[lo:hi][keep] - 1 + t.y1))
 
 
-# Dense posterior outputs (B x (P+1) x W floats per mode output) live on
-# the device until sparsified; launches are split and flushed so the
-# bytes queued stay bounded.
-_DENSE_BUDGET = 1 << 30
-
-
-def _batch_bucket_size(n: int) -> int:
-    """Pad batch sizes to powers of two (few distinct launch shapes)."""
-    b = 1
-    while b < n:
-        b *= 2
-    return b
-
-
 def _stream_entries_to_pairs(entries, xoff, L, ox, oy):
     """Streaming-engine posterior entries -> pair array with the chunk
     coordinate shift (the fixed-point semantics of _sparse_to_pairs_batch)."""
-    from cpecan_tpu_torch.utils.logmath import PAIR_ALIGNMENT_PROB_1
-
     vals, ks, js = entries
     keep = ks <= L
     vals, ks, js = vals[keep], ks[keep], js[keep]
@@ -125,58 +296,10 @@ def _stream_entries_to_pairs(entries, xoff, L, ox, oy):
         xs - 1 + ox, ys - 1 + oy)
 
 
-def _run_streaming_task(hmm, t, band, p, mode, keys):
-    """One long chunk through the streaming engine on the PairHMM's
-    device, in fixed memory for any chunk length."""
-    W = _width_bucket(band.frame_width())
-    out = fb_streaming.fb_pass_streaming(
-        hmm, encode(t.sub_x), encode(t.sub_y), band.offsets, band.widths,
-        len(t.sub_x), len(t.sub_y), t.ragged_left, t.ragged_right, mode, W,
-        fb_streaming.window_rows(p), fb_parallel.burnin_rows(p),
-        threshold=p.threshold)
-    metrics.add("dp_cells", int(band.widths.sum()))
-    metrics.add("streamed_chunks", 1)
-    metrics.add("stream_windows", out["windows"])
-    return [_stream_entries_to_pairs(out["post_entries"][k], out["xoff"],
-                                     band.diagonal_number, t.x1, t.y1)
-            for k in keys]
-
-
-def _expand_jobs(jobs, p):
-    tasks = []
-    for ji, (seq_x, seq_y, anchor_pairs, rl0, rr0) in enumerate(jobs):
-        if anchor_pairs is None:
-            # full-band job (the reference's unbanded small-matrix path):
-            # whole rectangle, no splitting
-            tasks.append(_Task(ji, 0, 0, seq_x, seq_y, None, rl0, rr0))
-            continue
-        for (x1, y1, x2, y2), local, rl, rr in _iterate_chunks(
-                seq_x, seq_y, anchor_pairs, p, rl0, rr0):
-            if x2 - x1 == 0 and y2 - y1 == 0:
-                continue
-            tasks.append(_Task(ji, x1, y1, seq_x[x1:x2], seq_y[y1:y2],
-                               local, rl, rr))
-    return tasks
-
-
-def _bands_of(tasks, p: PairwiseAlignmentParameters):
-    """Each task's band and frame width: the anchored tasks' in one
-    construct_bands call, full_band for the rest."""
-    anchored = [t for t in tasks if t.anchors is not None]
-    built, frames = anchored_bands(
-        [t.anchors for t in anchored], [len(t.sub_x) for t in anchored],
-        [len(t.sub_y) for t in anchored], p)
-    built, frames = iter(built), iter(frames.tolist())
-    bands, band_frames = [], []
-    for t in tasks:
-        if t.anchors is None:
-            band = full_band(len(t.sub_x), len(t.sub_y))
-            frame = band.frame_width()
-        else:
-            band, frame = next(built), next(frames)
-        bands.append(band)
-        band_frames.append(frame)
-    return bands, band_frames
+# Dense posterior outputs (B x (P+1) x W floats per mode output) live on
+# the device until sparsified; launches are split and flushed so the
+# bytes queued stay bounded.
+_DENSE_BUDGET = 1 << 30
 
 
 def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
@@ -200,21 +323,16 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
     results = [[[] for _ in jobs] for _ in range(n_out)]
 
     with metrics.stage("host_prep"):
-        tasks = _expand_jobs(jobs, p)
-        bands, frames = _bands_of(tasks, p)
-        widths = [_width_bucket(f) for f in frames]
+        buckets, streamed = plan(chunk_tasks(jobs, p), p)
     with metrics.stage("fb_pass"):  # the model's copy to the device
         hmm = PairHMM.from_state_machine(sm).to(device)
-    buckets: dict = {}
-    for t, band, W in zip(tasks, bands, widths):
-        if should_stream(band.diagonal_number, W):
-            with metrics.stage("fb_stream"):
-                for oi, pairs in enumerate(_run_streaming_task(
-                        hmm, t, band, p, mode, keys)):
-                    results[oi][t.job].append(pairs)
-            continue
-        P = _bucket(band.diagonal_number)
-        buckets.setdefault((P, W), []).append((t, band))
+    for t, band, W in streamed:
+        with metrics.stage("fb_stream"):
+            out = stream_task(hmm, t, band, W, p, mode)
+            for oi, k in enumerate(keys):
+                results[oi][t.job].append(_stream_entries_to_pairs(
+                    out["post_entries"][k], out["xoff"],
+                    band.diagonal_number, t.x1, t.y1))
 
     pending = []  # (items, offs (B, P+1), out) per launch
     pending_bytes = 0
@@ -232,7 +350,7 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
             P1, Wp = out[keys[0]].shape[1:]
             for oi, k in enumerate(keys):
                 count = _count_above(out[k], p.threshold)
-                cap = _batch_bucket_size(max(count, 64))
+                cap = fb_batch.batch_size(max(count, 64))
                 idx, vals = _compact_above(out[k], p.threshold, cap)[:2]
                 _sparse_to_pairs_batch(idx.cpu().numpy(), vals.cpu().numpy(),
                                        offs, P1, Wp, items, results[oi])
@@ -248,36 +366,12 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
             launches.extend(((P, W), items[s:s + bmax])
                             for s in range(0, len(items), bmax))
         for (P, W), items in launches:
-            B = pad_to_multiple(_batch_bucket_size(len(items)), n_dev)
-            sx = np.zeros((B, P), np.int32)
-            sy = np.zeros((B, P), np.int32)
-            offsets = np.zeros((B, P + 1), np.int32)
-            offsets[:, 1::2] = 1  # parity-consistent pad rows
-            widths = np.ones((B, P + 1), np.int32)
-            lx = np.zeros(B, np.int32)
-            ly = np.zeros(B, np.int32)
-            rl = np.zeros(B, bool)
-            rr = np.zeros(B, bool)
-            for i, (t, band) in enumerate(items):
-                o, w, _L = pad_band(band, P)
-                offsets[i] = o
-                widths[i] = w
-                sx[i, : len(t.sub_x)] = encode(t.sub_x)
-                sy[i, : len(t.sub_y)] = encode(t.sub_y)
-                lx[i] = len(t.sub_x)
-                ly[i] = len(t.sub_y)
-                rl[i] = t.ragged_left
-                rr[i] = t.ragged_right
-
+            arrays = launch_arrays(items, P, n_dev)
+            offsets, widths = arrays[2], arrays[3]
             metrics.add("dp_cells", int(widths[: len(items)].sum()))
-            args = [torch.from_numpy(a) for a in
-                    (sx, sy, offsets, widths, lx, ly, rl, rr)]
-            if mesh is None:  # with a mesh, each shard goes to its device
-                args = [a.to(device) for a in args]
-            out = fb_batch.fb_pass_batch(hmm, *args, mode=mode, width=W,
-                                         mesh=mesh)
+            out = launch(hmm, arrays, mode, W, device, mesh)
             pending.append((items, offsets.astype(np.int64), out))
-            pending_bytes += B * (P + 1) * W * 4 * n_out
+            pending_bytes += offsets.shape[0] * (P + 1) * W * 4 * n_out
             if pending_bytes >= _DENSE_BUDGET:
                 flush()
         flush()
@@ -303,3 +397,66 @@ def get_aligned_pairs_with_indels_batch(sm: StateMachine, jobs,
     (match, gap_x, gap_y) pair-array triple."""
     return batch_posteriors(sm, jobs, p, mode="posterior_all", device=device,
                             mesh=mesh)
+
+
+# ---------------------------------------------------------- expectations
+
+def _add_counts(hmm: Hmm, out: dict, lengths) -> None:
+    """Add one pass's expected counts to hmm: trans, emis and, per pair
+    of L = lengths[i] > 0 diagonals, the likelihood, its per-diagonal
+    totals recombined in float64 (total_raw + cumsum(mf) + reverse
+    cumsum(mb) over diagonals 1..L). The per-pair rows of ``out`` carry
+    a leading batch axis, or none for one streamed pair."""
+    hmm.transitions += np.asarray(out["trans"], np.float64)
+    hmm.emissions += np.asarray(out["emis"], np.float64)
+    mf, mb, totals = (np.atleast_2d(np.asarray(out[k], np.float64))
+                      for k in ("mf", "mb", "total_raw"))
+    for i, L in enumerate(lengths):
+        if L == 0:
+            continue
+        cf = np.cumsum(mf[i, : L + 1])
+        cb = np.cumsum(mb[i, : L + 1][::-1])[::-1]
+        hmm.likelihood += float(
+            np.sum(totals[i, 1 : L + 1] + cf[1:] + cb[1:]))
+
+
+def expectation_step(sm: StateMachine, tasks: list,
+                     p: PairwiseAlignmentParameters, hmm: Hmm,
+                     mesh=None, device="cuda") -> None:
+    """Accumulate expected counts for all tasks into hmm. Tasks are bucketed
+    by padded shape (P, W) and each bucket, padded to a power of two with
+    zero-length pairs, runs as one batch of expectation passes on
+    ``device``; tasks too long for that run one at a time through the
+    exact streaming engine. With a mesh its devices take the place of
+    ``device``: each bucket is padded to a multiple of the device count
+    and sharded over the mesh, and streamed tasks run on its first
+    device. EM's and realign's parameters never set
+    dynamicAnchorExpansion, so their bands take p.diagonalExpansion, as
+    the JAX package's expectation step's do."""
+    device = torch.device(device) if mesh is None else mesh.devices[0]
+    n_dev = 1 if mesh is None else mesh.size
+    model = PairHMM.from_state_machine(sm).to(device)
+    with metrics.stage("host_prep"):
+        buckets, streamed = plan(tasks, p)
+    for t, band, W in streamed:
+        with metrics.stage("fb_stream"):
+            out = stream_task(model, t, band, W, p, "expectation")
+        with metrics.stage("em_counts"):
+            _add_counts(hmm, out, [band.diagonal_number])
+    for (P, W), items in buckets.items():
+        metrics.add("dp_cells", sum(int(band.widths.sum()) for _, band in items))
+        with metrics.stage("host_prep"):
+            arrays = launch_arrays(items, P, n_dev)
+        lengths = (arrays[4] + arrays[5]).tolist()
+        # the launches and the copies back (which wait for the device)
+        with metrics.stage("fb_pass"):
+            out = launch(model, arrays, "expectation", W, device, mesh)
+            if device.type == "cuda":
+                # the copies below wait for the launches anyway: wait here,
+                # apart from the copies' own time
+                with metrics.stage("device_wait"):
+                    torch.cuda.current_stream(device).synchronize()
+            out = {k: v.cpu().numpy().astype(np.float64)
+                   for k, v in out.items()}
+        with metrics.stage("em_counts"):
+            _add_counts(hmm, out, lengths)

@@ -85,7 +85,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cpecan_tpu_torch.align.pairwise import _bucket, _width_bucket
 from cpecan_tpu_torch.config import PairwiseAlignmentParameters
 from cpecan_tpu_torch.models.state_machine import PairHMM, state_machine5
 from cpecan_tpu_torch.ops import fb_batch, fb_wavefront
@@ -260,7 +259,7 @@ def build_batch(rng, batch: int = BATCH, anchor_every: int = 50,
     base the dense-anchor companion (bench.py:174-198). W is the port's
     width bucket of the first band's frame."""
     sxs, offs, wids = [], [], []
-    P = _bucket(2 * seq_len)  # 2048 at 1 kb
+    P = fb_batch.diagonal_bucket(2 * seq_len)  # 2048 at 1 kb
     W = None
     cells = 0
     half = anchor_every // 2
@@ -269,7 +268,7 @@ def build_batch(rng, batch: int = BATCH, anchor_every: int = 50,
         anchors = [(i, i) for i in range(half, seq_len - half, anchor_every)]
         band = construct_band(anchors, seq_len, seq_len, EXPANSION)
         if W is None:
-            W = _width_bucket(band.frame_width())
+            W = fb_batch.width_bucket(band.frame_width())
         o, w, _ = pad_band(band, P, W)
         cells += int(band.widths.sum())
         sx = np.zeros(P, np.int32)

@@ -32,8 +32,9 @@ from cpecan_tpu_torch.ops import mea as mea_mod
 from cpecan_tpu_torch.ops import pairs as pairs_mod
 from cpecan_tpu_torch.utils import metrics
 from cpecan_tpu_torch.utils.logmath import PAIR_ALIGNMENT_PROB_1
-from cpecan_tpu_torch.utils.symbols import reverse_complement
 from cpecan_tpu_torch.align import batch as batch_align
+from cpecan_tpu_torch.align.batch import (
+    filter_anchors_to_matches, get_sub_sequence)
 
 
 def read_sequences(fasta_paths) -> dict:
@@ -48,14 +49,6 @@ def read_sequences(fasta_paths) -> dict:
     return sequences
 
 
-def get_sub_sequence(seq: str, start: int, end: int, strand: bool) -> str:
-    """Forward-strand subsequence; minus strand reads [end, start) and
-    reverse-complements (reference getSubSequence :232-240)."""
-    if strand:
-        return seq[start:end]
-    return reverse_complement(seq[end:start])
-
-
 def rebase(start: int, end: int, strand: bool, shift: int, flip: bool):
     """reference rebasePairwiseAlignmentCoordinates :220-230."""
     start += shift
@@ -64,20 +57,6 @@ def rebase(start: int, end: int, strand: bool, shift: int, flip: bool):
         strand = not strand
         start, end = end, start
     return start, end, strand
-
-
-def filter_anchors_to_matches(anchors, seq_x: str, seq_y: str):
-    """Keep anchors whose bases match exactly (never N) — reference matchFn
-    :277-281.  Vectorized: one bytes-level gather per sequence instead of
-    a per-anchor Python loop (realign feeds one anchor per matched base)."""
-    anchors = np.asarray(anchors, dtype=np.int64)
-    if anchors.ndim == 1 or len(anchors) == 0:
-        return anchors.reshape(0, 3)
-    bx = np.frombuffer(seq_x.upper().encode("latin-1"), np.uint8)
-    by = np.frombuffer(seq_y.upper().encode("latin-1"), np.uint8)
-    cx = bx[anchors[:, 0]]
-    keep = (cx == by[anchors[:, 1]]) & (cx != ord("N"))
-    return anchors[keep]
 
 
 def score_anchor_pairs(anchors, aligned_pairs, diagonal_expansion):
@@ -364,30 +343,18 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     for prepared in prefetch_map(
             lambda group: [prepare(pa) for pa in group],
             batches(cigar_io.cigar_read(stdin), max(args.batchPairs, 1))):
-        if hmm_expectations is not None:
-            # bucketed cross-record batches (em.expectation_step): this
-            # mode is the reference EM pipeline's worker
-            # (cPecanEm.py:178-180)
-            from cpecan_tpu_torch.align.pairwise import _iterate_chunks
-            from cpecan_tpu_torch.em.em import _Task, expectation_step
-
-            tasks = []
-            for (pa, sub_x, sub_y, anchors, filtered_anchors,
-                 *_rest) in prepared:
-                for (x1, y1, x2, y2), local, rl, rr in _iterate_chunks(
-                        sub_x, sub_y, filtered_anchors, p, True, True):
-                    if x2 - x1 == 0 and y2 - y1 == 0:
-                        continue
-                    tasks.append(_Task(sub_x[x1:x2], sub_y[y1:y2],
-                                       local, rl, rr))
-            expectation_step(sm, tasks, p, hmm_expectations, device=device)
-            continue
-
         # one cross-record device batch per group (reference realigns one
         # cigar at a time, cPecanRealign.c:509)
         jobs = [(sub_x, sub_y, filtered_anchors, True, True)
                 for (pa, sub_x, sub_y, anchors, filtered_anchors,
                      *_rest) in prepared]
+        if hmm_expectations is not None:
+            # bucketed cross-record expectation passes: this mode is the
+            # reference EM pipeline's worker (cPecanEm.py:178-180)
+            batch_align.expectation_step(
+                sm, batch_align.chunk_tasks(jobs, p), p, hmm_expectations,
+                device=device)
+            continue
         if args.mea:
             triples = batch_align.get_aligned_pairs_with_indels_batch(
                 sm, jobs, p, device=device)

@@ -27,8 +27,10 @@ cPecanEm.py):
                                              cigars with the current model
   --trials random restarts (:217-242)     -> sequential
 
-Tasks too long for the two-pass engine run one at a time through the
-exact streaming engine (ops/fb_streaming.py), as in cpecan_tpu.
+The expectation passes are the batch layer's ``expectation_step``
+(align/batch.py): tasks too long for the two-pass engine run one at a
+time through the exact streaming engine (ops/fb_streaming.py), as in
+cpecan_tpu.
 
 Several processes (after parallel.mesh.initialize_distributed) each run
 the same program on the whole corpus and keep their shard of the chunks;
@@ -45,23 +47,19 @@ import random
 import xml.etree.ElementTree as ET
 
 import numpy as np
-import torch
 
+from cpecan_tpu_torch.align.batch import (
+    chunk_tasks, expectation_step, filter_anchors_to_matches,
+    get_sub_sequence)
 from cpecan_tpu_torch.config import PairwiseAlignmentParameters
 from cpecan_tpu_torch.models.hmm import Hmm, StateMachineType
 from cpecan_tpu_torch.models.state_machine import (
-    PairHMM, StateMachine, default_state_machine, state_machine_from_hmm)
-from cpecan_tpu_torch.align.pairwise import (
-    _bucket, _iterate_chunks, _width_bucket)
+    default_state_machine, state_machine_from_hmm)
 from cpecan_tpu_torch.io import cigar as cigar_io
-from cpecan_tpu_torch.ops import fb_batch, fb_parallel, fb_streaming
-from cpecan_tpu_torch.ops.band import construct_bands
 from cpecan_tpu_torch.parallel.mesh import (
-    all_sum_across_processes, pad_to_multiple, process_count, process_index,
-    process_shard)
+    all_sum_across_processes, process_count, process_index, process_shard)
 from cpecan_tpu_torch.utils import metrics
 from cpecan_tpu_torch.utils.retry import run_with_retries
-from cpecan_tpu_torch.utils.symbols import encode
 
 
 @dataclasses.dataclass
@@ -135,179 +133,27 @@ def sample_chunks(chunks: list, max_total: float, rng: random.Random) -> list:
 
 # ------------------------------------------------------------ expectations
 
-@dataclasses.dataclass
-class _Task:
-    """One banded-FB sub-problem (a split chunk of one alignment)."""
-    sub_x: str
-    sub_y: str
-    anchors: list
-    ragged_left: bool
-    ragged_right: bool
-
-
 def tasks_from_cigars(cigars, sequences: dict,
                       p: PairwiseAlignmentParameters) -> list:
     """Alignments -> banded sub-problems, via the cPecanRealign
     expectation path: subsequences (rev-comp for minus strands), anchors
     from cigar match runs filtered to exact base matches, ragged 1,1,
     large-gap splitting (cPecanRealign.c:516-534)."""
-    from cpecan_tpu_torch.cli.realign import (
-        get_sub_sequence, filter_anchors_to_matches)
-
-    tasks = []
+    jobs = []
     for pa in cigars:
-        seq_x = sequences[pa.contig1]
-        seq_y = sequences[pa.contig2]
-        sub_x = get_sub_sequence(seq_x, pa.start1, pa.end1, pa.strand1)
-        sub_y = get_sub_sequence(seq_y, pa.start2, pa.end2, pa.strand2)
+        sub_x = get_sub_sequence(sequences[pa.contig1], pa.start1, pa.end1,
+                                 pa.strand1)
+        sub_y = get_sub_sequence(sequences[pa.contig2], pa.start2, pa.end2,
+                                 pa.strand2)
         fwd = cigar_io.PairwiseAlignment(
             pa.contig1, 0, len(sub_x), True, pa.contig2, 0, len(sub_y), True,
             pa.score, pa.operations)
         anchors = cigar_io.alignment_to_anchor_pairs(
             fwd, p.constraintDiagonalTrim, p.diagonalExpansion)
-        anchors = filter_anchors_to_matches(anchors, sub_x, sub_y)
-        for (x1, y1, x2, y2), local_anchors, rl, rr in _iterate_chunks(
-                sub_x, sub_y, anchors, p, True, True):
-            if x2 - x1 == 0 and y2 - y1 == 0:
-                continue
-            tasks.append(_Task(sub_x[x1:x2], sub_y[y1:y2], local_anchors, rl, rr))
-    return tasks
-
-
-def bucket_tasks(tasks: list, p: PairwiseAlignmentParameters) -> tuple:
-    """Tasks with their bands, grouped by padded shape: ({(P, W): [(task,
-    band), ...]}, streamed), where streamed lists the (task, band, W) of
-    the tasks too long for the two-pass engine
-    (``fb_streaming.should_stream``)."""
-    buckets: dict = {}
-    streamed = []
-    bands, frames = construct_bands(
-        [t.anchors for t in tasks], [len(t.sub_x) for t in tasks],
-        [len(t.sub_y) for t in tasks], p.diagonalExpansion)
-    for t, band, frame in zip(tasks, bands, frames.tolist()):
-        P = _bucket(band.diagonal_number)
-        W = _width_bucket(frame)
-        if fb_streaming.should_stream(band.diagonal_number, W):
-            streamed.append((t, band, W))
-        else:
-            buckets.setdefault((P, W), []).append((t, band))
-    return buckets, streamed
-
-
-def bucket_arrays(items: list, P: int, n_dev: int = 1) -> tuple:
-    """One bucket's launch inputs (sx, sy, offsets, widths, lx, ly,
-    ragged_left, ragged_right) as numpy arrays, padded with zero-length
-    pairs to a power of two (few distinct launch shapes), then to a
-    multiple of the mesh's device count n_dev. Each item's band rows are
-    ``pad_band(band, P)``'s."""
-    B_pad = 1
-    while B_pad < len(items):
-        B_pad *= 2
-    B_pad = pad_to_multiple(B_pad, n_dev)
-    n = len(items)
-    lxs = [len(t.sub_x) for t, _ in items]
-    lys = [len(t.sub_y) for t, _ in items]
-    sx = np.zeros((B_pad, P), np.int32)
-    sy = np.zeros((B_pad, P), np.int32)
-    offsets = np.zeros((B_pad, P + 1), np.int32)
-    widths = np.ones((B_pad, P + 1), np.int32)
-    # pad rows: parity-consistent offsets, zero lengths (no contribution)
-    offsets[:, 1::2] = 1
-    lx = np.zeros(B_pad, np.int32)
-    ly = np.zeros(B_pad, np.int32)
-    rl = np.zeros(B_pad, bool)
-    rr = np.zeros(B_pad, bool)
-    lx[:n] = lxs
-    ly[:n] = lys
-    rl[:n] = [t.ragged_left for t, _ in items]
-    rr[:n] = [t.ragged_right for t, _ in items]
-    # past an item's last diagonal L, as pad_band pads: that diagonal's
-    # offset plus (k - L) % 2, width 1
-    alt = np.arange(1, P + 2, dtype=np.int32) % 2
-    codes_x = encode("".join(t.sub_x for t, _ in items))
-    codes_y = encode("".join(t.sub_y for t, _ in items))
-    x0 = y0 = 0
-    for i, ((_, band), nx, ny) in enumerate(zip(items, lxs, lys)):
-        L = nx + ny
-        assert L <= P
-        offsets[i, : L + 1] = band.offsets
-        np.add(alt[: P - L], band.offsets[L], out=offsets[i, L + 1:])
-        widths[i, : L + 1] = band.widths
-        sx[i, :nx] = codes_x[x0: x0 + nx]
-        sy[i, :ny] = codes_y[y0: y0 + ny]
-        x0 += nx
-        y0 += ny
-    return sx, sy, offsets, widths, lx, ly, rl, rr
-
-
-def expectation_step(sm: StateMachine, tasks: list,
-                     p: PairwiseAlignmentParameters, hmm: Hmm,
-                     mesh=None, device="cuda") -> None:
-    """Accumulate expected counts for all tasks into hmm. Tasks are bucketed
-    by padded shape (P, W) and each bucket, padded to a power of two with
-    zero-length pairs, runs as one batch of expectation passes on
-    ``device``; tasks too long for that run one at a time through the
-    exact streaming engine. With a mesh its devices take the place of
-    ``device``: each bucket is padded to a multiple of the device count
-    and sharded over the mesh, and streamed tasks run on its first
-    device."""
-    device = torch.device(device) if mesh is None else mesh.devices[0]
-    n_dev = 1 if mesh is None else mesh.size
-    model = PairHMM.from_state_machine(sm).to(device)
-    with metrics.stage("host_prep"):
-        buckets, streamed = bucket_tasks(tasks, p)
-    for t, band, W in streamed:
-        with metrics.stage("fb_stream"):
-            out = fb_streaming.fb_pass_streaming(
-                model, encode(t.sub_x), encode(t.sub_y), band.offsets,
-                band.widths, len(t.sub_x), len(t.sub_y), t.ragged_left,
-                t.ragged_right, "expectation", W,
-                fb_streaming.window_rows(p), fb_parallel.burnin_rows(p))
-        with metrics.stage("em_counts"):
-            hmm.transitions += out["trans"]
-            hmm.emissions += out["emis"]
-            L = band.diagonal_number
-            cf = np.cumsum(out["mf"][: L + 1])
-            cb = np.cumsum(out["mb"][: L + 1][::-1])[::-1]
-            hmm.likelihood += float(
-                np.sum(out["total_raw"][1 : L + 1] + cf[1:] + cb[1:]))
-        metrics.add("dp_cells", int(band.widths.sum()))
-        metrics.add("streamed_chunks", 1)
-    for (P, W), items in buckets.items():
-        B = len(items)
-        metrics.add("dp_cells", sum(int(band.widths.sum()) for _, band in items))
-        with metrics.stage("host_prep"):
-            args = bucket_arrays(items, P, n_dev)
-        lx, ly = args[4], args[5]
-        # the launches and the copies back (which wait for the device);
-        # with a mesh, each shard goes from the host to its device
-        with metrics.stage("fb_pass"):
-            args = [torch.from_numpy(a) for a in args]
-            if mesh is None:
-                args = [a.to(device) for a in args]
-            out = fb_batch.fb_pass_batch(
-                model, *args, mode="expectation", width=W, mesh=mesh)
-            if device.type == "cuda":
-                # the copies below wait for the launches anyway: wait here,
-                # apart from the copies' own time
-                with metrics.stage("device_wait"):
-                    torch.cuda.current_stream(device).synchronize()
-            out = {k: v.cpu().numpy().astype(np.float64)
-                   for k, v in out.items()}
-
-        with metrics.stage("em_counts"):
-            hmm.transitions += out["trans"]
-            hmm.emissions += out["emis"]
-            # likelihood: per-diagonal totals recombined in float64 on host
-            mf, mb, totals = out["mf"], out["mb"], out["total_raw"]
-            for i in range(B):
-                L = int(lx[i] + ly[i])
-                if L == 0:
-                    continue
-                cf = np.cumsum(mf[i, : L + 1])
-                cb = np.cumsum(mb[i, : L + 1][::-1])[::-1]
-                hmm.likelihood += float(
-                    np.sum(totals[i, 1 : L + 1] + cf[1:] + cb[1:]))
+        jobs.append((sub_x, sub_y,
+                     filter_anchors_to_matches(anchors, sub_x, sub_y),
+                     True, True))
+    return chunk_tasks(jobs, p)
 
 
 # ----------------------------------------------------------------- EM loop

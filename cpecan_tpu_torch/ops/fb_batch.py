@@ -18,6 +18,11 @@ is then ``"cuda_sharded"`` or ``"torch_sharded"``.
 
 The engine of the most recent call is recorded in LAST_ENGINE.
 
+Launch shapes are decided here, and nowhere else: every launch pads its
+pairs' diagonals to ``diagonal_bucket``, its band width to
+``width_bucket`` and its batch to ``batch_size``, so that few distinct
+shapes reach the kernels.
+
 Debug invariants: with ``CPECAN_TPU_DEBUG=1`` every call checks its
 outputs as cpecan_tpu/ops/fb.py's checkify mode does (the reference's
 total-probability asserts, impl/pairwiseAligner.c:830-838) and raises
@@ -33,9 +38,42 @@ import os
 import torch
 
 from cpecan_tpu_torch.ops import fb_wavefront
+from cpecan_tpu_torch.parallel.mesh import pad_to_multiple
 
 # Most recent engine choice, for tests and telemetry.
 LAST_ENGINE: str | None = None
+
+# Band-width buckets: warp multiples up to 128, then multiples of 128.
+# Padding slots are masked out of every stream, so the bucket changes
+# which pairs share a launch and nothing in the results.
+WIDTH_LADDER = (32, 64, 128)
+
+
+def _next_power_of_two(n: int, minimum: int) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def diagonal_bucket(n: int) -> int:
+    """A launch's padded diagonal count: the next power of two, at least 8."""
+    return _next_power_of_two(n, 8)
+
+
+def width_bucket(w: int) -> int:
+    """A launch's padded band width: the first rung of WIDTH_LADDER that
+    holds ``w``, else the next multiple of 128."""
+    for b in WIDTH_LADDER:
+        if w <= b:
+            return b
+    return ((w + 127) // 128) * 128
+
+
+def batch_size(n: int, n_dev: int = 1) -> int:
+    """A launch's padded batch: the next power of two, then the next
+    multiple of the mesh's device count ``n_dev``."""
+    return pad_to_multiple(_next_power_of_two(n, 1), n_dev)
 
 
 def debug_checks_enabled() -> bool:

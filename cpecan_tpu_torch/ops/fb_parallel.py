@@ -25,7 +25,7 @@ The per-diagonal scales are window-local, so no global mf/mb/log_fwd or
 counts come out: posterior modes only.
 
 Each window is rebased to its own local band width and windows are
-grouped by the port's width ladder (``align/pairwise._width_bucket``);
+grouped by the port's width ladder (``fb_batch.width_bucket``);
 a group runs in slices whose forward intermediate stays under a budget,
 each slice with arrays of its own. The TPU's log2 lane buckets, pow2
 slice ladder, tile picking and VMEM self-healing have no counterpart.
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from cpecan_tpu_torch.ops import fb as _fb
+from cpecan_tpu_torch.ops import fb_batch
 from cpecan_tpu_torch.ops import fb_wavefront as _wf
 from cpecan_tpu_torch.ops.fb_segmented import POST_KEYS, _to_host
 from cpecan_tpu_torch.ops.fb_streaming import (
@@ -82,8 +83,6 @@ def fb_pass_parallel(hmm, seq_x_codes, seq_y_codes, offsets: np.ndarray,
     rows per window (default WINDOW_ROWS; rounded up to 8, as the burn-in
     is, so every window starts on the same rescale phase). Returns
     {"post_entries": {key: (vals, ks, js)}, "xoff", "windows"}."""
-    from cpecan_tpu_torch.align.pairwise import _width_bucket
-
     if not supported(mode):
         raise ValueError(f"parallel engine does not support mode={mode!r}")
     dev = hmm.t.device
@@ -117,7 +116,7 @@ def fb_pass_parallel(hmm, seq_x_codes, seq_y_codes, offsets: np.ndarray,
         hi = int(ss[w]) + Kp
         bases[w] = max(int(jlo_h[lo:hi].min()), 0) if w > 0 else 0
         local = max(int(jhi_h[lo:hi].max()) - int(bases[w]) + 1, 1)
-        groups.setdefault(min(_width_bucket(local), W), []).append(w)
+        groups.setdefault(min(fb_batch.width_bucket(local), W), []).append(w)
 
     prob = _fb._prob_params(hmm)
     t, nz = hmm.t_prob_host, hmm.nz

@@ -3,7 +3,9 @@ call over many pairs, csrc/host/band.cpp) against construct_band and
 BandTensors.frame_width, bit for bit; and EM's bucketing and realign's
 batch_posteriors on the CPU, equal with the native builder and with the
 numpy fallback (CPECAN_TPU_NATIVE=0), with the ``native_bands`` counter
-saying which one ran."""
+saying which one ran; and the batch layer's launch packer
+(batch.launch_arrays) against a loop of pad_band calls, on EM's and
+realign's tasks."""
 
 import random
 
@@ -14,12 +16,15 @@ import torch
 from cpecan_tpu_torch.align import batch as batch_mod
 from cpecan_tpu_torch.align import native
 from cpecan_tpu_torch.align import pairwise
+from cpecan_tpu_torch.align.batch import (
+    filter_anchors_to_matches, get_sub_sequence)
 from cpecan_tpu_torch.config import PairwiseAlignmentParameters
 from cpecan_tpu_torch.em import em as em_mod
 from cpecan_tpu_torch.io import cigar as cigar_io
 from cpecan_tpu_torch.models.hmm import Hmm, StateMachineType
 from cpecan_tpu_torch.models.state_machine import state_machine5
 from cpecan_tpu_torch.ops import band as band_mod
+from cpecan_tpu_torch.parallel.mesh import pad_to_multiple
 from cpecan_tpu_torch.utils import metrics
 from cpecan_tpu_torch.utils.symbols import encode, reverse_complement
 
@@ -210,16 +215,17 @@ def _assert_equal(a, b):
     elif isinstance(a, np.ndarray):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    elif isinstance(a, (band_mod.BandTensors, em_mod._Task)):
+    elif isinstance(a, (band_mod.BandTensors, batch_mod.Task)):
         _assert_equal(vars(a), vars(b))
     else:
         assert a == b
 
 
 def _bucket_arrays_by_pad_band(items, P, n_dev):
-    """bucket_arrays as a loop of pad_band and encode calls, item by
-    item: the oracle of its direct row copies."""
-    B = em_mod.pad_to_multiple(1 << max(len(items) - 1, 0).bit_length(), n_dev)
+    """launch_arrays as a loop of pad_band and encode calls, item by
+    item (realign's packing before the batch layer had one packer): the
+    oracle of its direct row copies."""
+    B = pad_to_multiple(1 << max(len(items) - 1, 0).bit_length(), n_dev)
     sx, sy = np.zeros((B, P), np.int32), np.zeros((B, P), np.int32)
     offsets = np.zeros((B, P + 1), np.int32)
     offsets[:, 1::2] = 1
@@ -235,14 +241,52 @@ def _bucket_arrays_by_pad_band(items, P, n_dev):
     return sx, sy, offsets, widths, lx, ly, rl, rr
 
 
-@pytest.mark.parametrize("n_dev", [1, 3])
-def test_bucket_arrays_equal_pad_band(n_dev):
+def _realign_job(sequences, pa, anchors=True):
+    """The batch job realign builds from a cigar record: its
+    subsequences (reverse-complemented on the minus strand), anchors from
+    its match runs filtered to exact base matches, ragged ends; without
+    anchors, a full-band job."""
+    sx = get_sub_sequence(sequences[pa.contig1], pa.start1, pa.end1,
+                          pa.strand1)
+    sy = get_sub_sequence(sequences[pa.contig2], pa.start2, pa.end2,
+                          pa.strand2)
+    if not anchors:
+        return sx, sy, None, True, True
+    fwd = cigar_io.PairwiseAlignment(
+        pa.contig1, 0, len(sx), True, pa.contig2, 0, len(sy), True,
+        pa.score, pa.operations)
+    return (sx, sy, filter_anchors_to_matches(
+        cigar_io.alignment_to_anchor_pairs(fwd, 0, 4), sx, sy), True, True)
+
+
+def _packer_buckets(tasks):
+    """EM's tasks, or realign-style jobs chunked as realign chunks them,
+    grouped by launch shape."""
     sequences, cigars = _corpus()
-    tasks = em_mod.tasks_from_cigars(cigars, sequences, _P)
-    buckets, _ = em_mod.bucket_tasks(tasks, _P)
-    assert len(buckets) > 1
+    if tasks == "em":
+        return batch_mod.plan(
+            em_mod.tasks_from_cigars(cigars, sequences, _P), _P)[0]
+    p = _P if tasks == "split" else _P.replace(
+        splitMatrixBiggerThanThis=10 ** 8)
+    pa = {"minus_strand": cigars[1], "split": cigars[0],
+          "full_band": cigars[2]}[tasks]
+    assert pa.strand2 == (tasks != "minus_strand")
+    jobs = [_realign_job(sequences, pa, anchors=tasks != "full_band")]
+    chunks = batch_mod.chunk_tasks(jobs, p)
+    assert (len(chunks) > 1) == (tasks == "split")
+    return batch_mod.plan(chunks, p)[0]
+
+
+@pytest.mark.parametrize("n_dev,tasks", [
+    pytest.param(1, "em", id="1"), pytest.param(3, "em", id="3"),
+    pytest.param(1, "minus_strand", id="minus_strand"),
+    pytest.param(3, "split", id="split"),
+    pytest.param(1, "full_band", id="full_band")])
+def test_bucket_arrays_equal_pad_band(n_dev, tasks):
+    buckets = _packer_buckets(tasks)
+    assert len(buckets) > 1 or tasks != "em"
     for (P, _W), items in buckets.items():
-        _assert_equal(em_mod.bucket_arrays(items, P, n_dev),
+        _assert_equal(batch_mod.launch_arrays(items, P, n_dev),
                       _bucket_arrays_by_pad_band(items, P, n_dev))
 
 
@@ -253,8 +297,8 @@ def test_em_buckets_and_counts_equal_native_and_numpy(monkeypatch):
     assert len(tasks) > len(cigars)  # the gaps split every read
 
     def run():
-        buckets, streamed = em_mod.bucket_tasks(tasks, _P)
-        arrays = {k: em_mod.bucket_arrays(items, k[0])
+        buckets, streamed = batch_mod.plan(tasks, _P)
+        arrays = {k: batch_mod.launch_arrays(items, k[0])
                   for k, items in buckets.items()}
         hmm = Hmm(StateMachineType.fiveState)
         em_mod.expectation_step(state_machine5(), tasks, _P, hmm,
@@ -264,7 +308,7 @@ def test_em_buckets_and_counts_equal_native_and_numpy(monkeypatch):
 
     (got, n_native), (want, n_numpy) = _both_ways(monkeypatch, run)
     _assert_equal(got, want)
-    # bucket_tasks twice: once above, once in expectation_step
+    # plan twice: once above, once in expectation_step
     assert (n_native, n_numpy) == (2 * len(tasks), 0)
 
 
@@ -272,9 +316,6 @@ def test_em_buckets_and_counts_equal_native_and_numpy(monkeypatch):
 @pytest.mark.parametrize("dynamic", [False, True],
                          ids=["static", "per_anchor"])
 def test_batch_posteriors_equal_native_and_numpy(dynamic, monkeypatch):
-    from cpecan_tpu_torch.cli.realign import (
-        filter_anchors_to_matches, get_sub_sequence)
-
     p = PairwiseAlignmentParameters(
         diagonalExpansion=4, splitMatrixBiggerThanThis=20 * 20,
         dynamicAnchorExpansion=dynamic)
@@ -293,12 +334,12 @@ def test_batch_posteriors_equal_native_and_numpy(dynamic, monkeypatch):
         jobs.append((sx, sy, filter_anchors_to_matches(anchors, sx, sy),
                      False, False))
     jobs.append((jobs[0][0][:40], jobs[0][1][:37], None, False, False))
-    tasks = batch_mod._expand_jobs(jobs, p)
+    tasks = batch_mod.chunk_tasks(jobs, p)
     n_anchored = sum(t.anchors is not None for t in tasks)
     assert n_anchored > len(jobs)  # the gaps split every anchored job
 
     def run():
-        return (batch_mod._bands_of(tasks, p),
+        return (batch_mod.build_bands(tasks, p),
                 batch_mod.batch_posteriors(state_machine5(), jobs, p,
                                            mode="posterior_all", device="cpu"))
 
@@ -309,8 +350,8 @@ def test_batch_posteriors_equal_native_and_numpy(dynamic, monkeypatch):
 
 @needs_native
 def test_run_chunk_equal_native_and_numpy(monkeypatch):
-    """The one-chunk APIs (expectations, forward probability) build their
-    band through the same builder."""
+    """The pairwise expectation and forward-probability APIs build their
+    bands through the same builder."""
     sequences, cigars = _corpus(n=1, seed=17)
     tasks = em_mod.tasks_from_cigars(cigars, sequences, _P)
     t = max(tasks, key=lambda t: len(t.sub_x))

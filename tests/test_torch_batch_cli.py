@@ -42,7 +42,7 @@ def _jobs(n_pairs=3, length=90, seed=11):
         x = get_random_sequence(length + 7 * i, rng).upper()
         y = evolve_sequence(x, rng).upper()
         pa = identity_cigar("x", "y", len(x), len(y))
-        anchors = port_realign.filter_anchors_to_matches(
+        anchors = port_batch.filter_anchors_to_matches(
             cigar_io.alignment_to_anchor_pairs(pa, 0, 4), x, y)
         jobs.append((x, y, anchors, i % 2 == 0, i % 2 == 1))
     x = get_random_sequence(30, rng).upper()
@@ -124,8 +124,8 @@ def test_compaction_matches_jax(cap):
 def test_width_buckets_do_not_change_pairs(monkeypatch):
     jobs, p, sm = _jobs(), _params(), state_machine5()
     a = port_batch.batch_posteriors(sm, jobs, p, device="cpu")
-    monkeypatch.setattr(port_pairwise, "WIDTH_LADDER", (48, 96, 256))
-    assert port_pairwise._width_bucket(20) == 48
+    monkeypatch.setattr(fb_batch, "WIDTH_LADDER", (48, 96, 256))
+    assert fb_batch.width_bucket(20) == 48
     b = port_batch.batch_posteriors(sm, jobs, p, device="cpu")
     for x, y in zip(a, b):
         _assert_pairs_agree(x, y, p.threshold)

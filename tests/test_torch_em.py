@@ -77,24 +77,25 @@ def test_wide_unanchored_gap_buckets_within_the_kernels():
     shared memory for; and no band that does not stream (a full band is
     the widest for its diagonals) is wider than the kernels' shared-memory
     variants take (MAX_KERNEL_WIDTH, where the wide variants start)."""
-    from cpecan_tpu_torch.align.batch import should_stream
-    from cpecan_tpu_torch.align.pairwise import _width_bucket
+    from cpecan_tpu_torch.align import batch
     from cpecan_tpu_torch.ops import fb_wavefront
+    from cpecan_tpu_torch.ops.fb_batch import width_bucket
+    from cpecan_tpu_torch.ops.fb_streaming import should_stream
     from cpecan_tpu_torch.ops.band import construct_band
 
     rng = random.Random(5)
     x = get_random_sequence(2600, rng).upper()
     y = evolve_sequence(x, rng).upper()
     p = port_em.EmOptions().pairwise_params()
-    buckets, streamed = port_em.bucket_tasks(
-        [port_em._Task(x, y, [], True, True)], p)
+    buckets, streamed = batch.plan(
+        [batch.Task(0, 0, 0, x, y, [], True, True)], p)
     assert not streamed
     (P, W), items = buckets.popitem()
     assert fb_wavefront.EXP_SHARED_WIDTH < W <= fb_wavefront.MAX_KERNEL_WIDTH
     assert len(items) == 1 and P >= len(x) + len(y)
     for n in range(2048, 4096, 64):
         band = construct_band([], n, n, p.diagonalExpansion)
-        W = _width_bucket(band.frame_width())
+        W = width_bucket(band.frame_width())
         if not should_stream(band.diagonal_number, W):
             assert W <= fb_wavefront.MAX_KERNEL_WIDTH, n
 

@@ -173,9 +173,9 @@ def _bucket(n_pad=8):
     tensors."""
     sequences, cigars = make_corpus(5, 30, seed=6)
     tasks = port_em.tasks_from_cigars(cigars, sequences, _P)
-    buckets, _ = port_em.bucket_tasks(tasks, _P)
+    buckets, _ = port_batch.plan(tasks, _P)
     (P, W), items = max(buckets.items(), key=lambda kv: len(kv[1]))
-    args = port_em.bucket_arrays(items, P, n_pad)
+    args = port_batch.launch_arrays(items, P, n_pad)
     return [torch.from_numpy(a) for a in args], W, len(items)
 
 
@@ -256,14 +256,14 @@ def test_expectation_step_mesh_matches_serial_and_jax():
 
 def test_bucket_arrays_pad_to_the_mesh():
     sequences, cigars = make_corpus(5, 30, seed=6)
-    buckets, _ = port_em.bucket_tasks(
+    buckets, _ = port_batch.plan(
         port_em.tasks_from_cigars(cigars, sequences, _P), _P)
     (P, _W), items = next(iter(buckets.items()))
     for n_dev, want in ((1, 1), (3, 3), (8, 8)):
         sub = items[:1]
-        assert port_em.bucket_arrays(sub, P, n_dev)[0].shape[0] == want
-    B = port_em.bucket_arrays(items, P)[0].shape[0]
-    assert port_em.bucket_arrays(items, P, 3)[0].shape[0] \
+        assert port_batch.launch_arrays(sub, P, n_dev)[0].shape[0] == want
+    B = port_batch.launch_arrays(items, P)[0].shape[0]
+    assert port_batch.launch_arrays(items, P, 3)[0].shape[0] \
         == port_mesh.pad_to_multiple(B, 3)
 
 

@@ -95,6 +95,7 @@ def test_stream_budget_variable_streams_expectation_step(monkeypatch):
     """tests/test_streaming.py:164's case: CPECAN_TPU_STREAM_BUDGET=1
     leaves no chunk for the two-pass buckets, and the streamed counts
     match the two-pass ones."""
+    from cpecan_tpu_torch.align import batch
     from cpecan_tpu_torch.em import em as em_mod
     from cpecan_tpu_torch.io import cigar as cigar_io
     from cpecan_tpu_torch.models.hmm import Hmm, StateMachineType
@@ -114,11 +115,11 @@ def test_stream_budget_variable_streams_expectation_step(monkeypatch):
         minDiagsBetweenTraceBack=64, traceBackDiagonals=16)
     sm = state_machine5()
     tasks = em_mod.tasks_from_cigars(cigars, sequences, p)
-    assert tasks and em_mod.bucket_tasks(tasks, p)[0]
+    assert tasks and batch.plan(tasks, p)[0]
     serial = Hmm(StateMachineType.fiveState)
     em_mod.expectation_step(sm, tasks, p, serial, device="cpu")
     monkeypatch.setenv("CPECAN_TPU_STREAM_BUDGET", "1")
-    assert not em_mod.bucket_tasks(tasks, p)[0]
+    assert not batch.plan(tasks, p)[0]
     streamed = Hmm(StateMachineType.fiveState)
     em_mod.expectation_step(sm, tasks, p, streamed, device="cpu")
     assert fb_streaming.LAST_ENGINE == "exact"

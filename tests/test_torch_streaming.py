@@ -275,6 +275,7 @@ def test_batch_posteriors_stream_route_matches(monkeypatch):
 
 
 def test_expectation_step_stream_route_matches(monkeypatch):
+    from cpecan_tpu_torch.align import batch
     from cpecan_tpu_torch.em import em as em_mod
     from cpecan_tpu_torch.io import cigar as cigar_io
     from cpecan_tpu_torch.models.hmm import Hmm, StateMachineType
@@ -298,7 +299,7 @@ def test_expectation_step_stream_route_matches(monkeypatch):
     serial = Hmm(StateMachineType.fiveState)
     em_mod.expectation_step(sm, tasks, p, serial, device="cpu")
     monkeypatch.setattr(fb_streaming, "_STREAM_BUDGET", 1)
-    assert not em_mod.bucket_tasks(tasks, p)[0]
+    assert not batch.plan(tasks, p)[0]
     streamed = Hmm(StateMachineType.fiveState)
     em_mod.expectation_step(sm, tasks, p, streamed, device="cpu")
     np.testing.assert_allclose(streamed.transitions, serial.transitions,
@@ -320,7 +321,7 @@ def test_wide_unanchored_gap_streams_to_the_wide_kernels():
     the chunk streams, and on the card each kernel launch of that width
     takes its wide variant."""
     from cpecan_tpu.ops.band import construct_band as jax_construct_band
-    from cpecan_tpu_torch.align.pairwise import _width_bucket
+    from cpecan_tpu_torch.ops.fb_batch import width_bucket
     from cpecan_tpu_torch.cli import realign
 
     p = realign.alignment_parameters(realign.make_parser().parse_args(
@@ -330,7 +331,7 @@ def test_wide_unanchored_gap_streams_to_the_wide_kernels():
     ref = jax_construct_band([], 4300, 4300, p.diagonalExpansion)
     np.testing.assert_array_equal(band.offsets, ref.offsets)
     np.testing.assert_array_equal(band.widths, ref.widths)
-    W = _width_bucket(band.frame_width())
+    W = width_bucket(band.frame_width())
     assert W > fb_wavefront.MAX_KERNEL_WIDTH
     assert fb_streaming.should_stream(band.diagonal_number, W)
     for kernel in ("fwd", "bwd", "exp"):
