@@ -4,8 +4,11 @@ Counterpart of cpecan_tpu/align/batch.py and of the expectation step of
 cpecan_tpu/em/em.py. Every caller of the forward-backward pass goes
 through here:
 
+  alignment_tasks   a job of cigars -> its jobs in one pass (subsequences,
+                    one walk of the ops, anchors in one native call),
+                    then chunk_tasks
   chunk_tasks       jobs -> Tasks: large-gap splitting (align/split.py),
-                    empty chunks dropped
+                    skipped where no gap is large, empty chunks dropped
   plan              Tasks -> bands, grouped by launch shape (P, W); the
                     chunks too long for the two-pass engine
                     (``fb_streaming.should_stream``) are set apart
@@ -41,8 +44,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from cpecan_tpu_torch.align.split import get_split_points, split_anchors
+from cpecan_tpu_torch.align import native
+from cpecan_tpu_torch.align.split import (
+    _as_array, get_split_points, split_anchors)
 from cpecan_tpu_torch.config import PairwiseAlignmentParameters
+from cpecan_tpu_torch.io import cigar as cigar_io
 from cpecan_tpu_torch.models.hmm import Hmm
 from cpecan_tpu_torch.models.state_machine import PairHMM, StateMachine
 from cpecan_tpu_torch.ops import compact as compact_mod
@@ -93,41 +99,141 @@ def filter_anchors_to_matches(anchors, seq_x: str, seq_y: str):
     return anchors[keep]
 
 
-def _iterate_chunks(seq_x: str, seq_y: str, anchor_pairs,
-                    p: PairwiseAlignmentParameters,
-                    ragged_left: bool, ragged_right: bool):
-    """Split by large gaps and yield (rect, local anchors, ragged flags)
-    (reference getPosteriorProbsWithBandingSplittingAlignmentsByLargeGaps
-    :1273-1326: ragged flags propagate to the outermost chunks only)."""
-    lx, ly = len(seq_x), len(seq_y)
-    split_points = get_split_points(
-        anchor_pairs, lx, ly, p.splitMatrixBiggerThanThis, ragged_left,
-        ragged_right)
-    n = len(split_points)
-    for i, (rect, local_anchors) in enumerate(
-            split_anchors(anchor_pairs, split_points)):
-        rl = ragged_left or i > 0
-        rr = ragged_right or i < n - 1
-        yield rect, local_anchors, rl, rr
-
-
-def chunk_tasks(jobs, p: PairwiseAlignmentParameters) -> list:
+def chunk_tasks(jobs, p: PairwiseAlignmentParameters,
+                unsplit=None) -> list:
     """Jobs (seq_x, seq_y, anchor_pairs, ragged_left, ragged_right) ->
-    the Tasks of their non-empty chunks, in job order. A job with
-    anchor_pairs None is one full-band task (the reference's unbanded
-    small-matrix path: the whole rectangle, no splitting)."""
+    the Tasks of their non-empty chunks, in job order: each anchored job
+    split by large gaps (reference
+    getPosteriorProbsWithBandingSplittingAlignmentsByLargeGaps
+    :1273-1326: ragged flags propagate to the outermost chunks only). A
+    job with anchor_pairs None is one full-band task (the reference's
+    unbanded small-matrix path: the whole rectangle, no splitting). A job
+    the split leaves whole is one task of its anchors as they are
+    (counter ``unsplit_jobs``); ``unsplit``, where given, holds each
+    job's answer, else get_split_points gives it."""
     tasks = []
+    n_unsplit = 0
     for ji, (seq_x, seq_y, anchor_pairs, rl0, rr0) in enumerate(jobs):
         if anchor_pairs is None:
             tasks.append(Task(ji, 0, 0, seq_x, seq_y, None, rl0, rr0))
             continue
-        for (x1, y1, x2, y2), local, rl, rr in _iterate_chunks(
-                seq_x, seq_y, anchor_pairs, p, rl0, rr0):
+        lx, ly = len(seq_x), len(seq_y)
+        anchors = _as_array(anchor_pairs)
+        whole = [(0, 0, lx, ly)]
+        points = (whole if unsplit is not None and unsplit[ji] else
+                  get_split_points(anchors, lx, ly,
+                                   p.splitMatrixBiggerThanThis, rl0, rr0))
+        if points == whole:
+            n_unsplit += 1
+            if lx or ly:
+                tasks.append(Task(ji, 0, 0, seq_x, seq_y, anchors, rl0, rr0))
+            continue
+        for i, ((x1, y1, x2, y2), local) in enumerate(
+                split_anchors(anchors, points)):
             if x2 - x1 == 0 and y2 - y1 == 0:
                 continue
-            tasks.append(Task(ji, x1, y1, seq_x[x1:x2], seq_y[y1:y2],
-                              local, rl, rr))
+            tasks.append(Task(ji, x1, y1, seq_x[x1:x2], seq_y[y1:y2], local,
+                              rl0 or i > 0, rr0 or i < len(points) - 1))
+    metrics.add("unsplit_jobs", n_unsplit)
     return tasks
+
+
+# Every latin-1 byte's complement: case kept, N for all but ACGTacgt.
+_COMPLEMENT = bytes(
+    {ord(a): ord(b) for a, b in zip("ACGTacgt", "TGCAtgca")}.get(c, ord("N"))
+    for c in range(256))
+
+
+def fast_reverse_complement(seq: str) -> str:
+    """symbols.reverse_complement through one bytes.translate table; a
+    string outside latin-1 takes symbols.reverse_complement."""
+    try:
+        raw = seq.encode("latin-1")
+    except UnicodeEncodeError:
+        return reverse_complement(seq)
+    return raw[::-1].translate(_COMPLEMENT).decode("ascii")
+
+
+def _sub_sequence(seq: str, start: int, end: int, strand: bool) -> str:
+    """get_sub_sequence with fast_reverse_complement."""
+    if strand:
+        return seq[start:end]
+    return fast_reverse_complement(seq[end:start])
+
+
+def _record_anchors(pa, sub_x: str, sub_y: str,
+                    p: PairwiseAlignmentParameters) -> np.ndarray:
+    """One alignment's matched anchors, as realign prepares a record."""
+    fwd = cigar_io.PairwiseAlignment(
+        pa.contig1, 0, len(sub_x), True, pa.contig2, 0, len(sub_y), True,
+        pa.score, pa.operations)
+    anchors = cigar_io.alignment_to_anchor_pairs(
+        fwd, p.constraintDiagonalTrim, p.diagonalExpansion)
+    return filter_anchors_to_matches(anchors, sub_x, sub_y)
+
+
+def alignment_anchors(alignments, subs,
+                      p: PairwiseAlignmentParameters) -> tuple:
+    """Each alignment's anchors, as _record_anchors gives them, from one
+    walk of the job's cigar ops and one native call: ([(N, 3) int64 views
+    of one array], each one's largest gap area as get_split_points
+    measures it, or None where not computed). Without the host library,
+    for sequences outside ASCII, a negative constraintDiagonalTrim and
+    alignments whose ops do not end at their spans, they go record by
+    record, which raises for the last as alignment_to_anchor_pairs
+    does."""
+    trim = p.constraintDiagonalTrim
+    op_starts = np.zeros(len(alignments) + 1, np.int64)
+    np.cumsum([len(pa.operations) for pa in alignments], out=op_starts[1:])
+    n_ops = int(op_starts[-1])
+    # the one walk of the ops: their codes, then their lengths
+    codes = "".join([c for pa in alignments for c, _ in pa.operations])
+    sx = "".join([x for x, _ in subs])
+    sy = "".join([y for _, y in subs])
+    built = None
+    if (native.available() and trim >= 0 and len(codes) == n_ops
+            and codes.isascii() and sx.isascii() and sy.isascii()):
+        x_starts = np.zeros(len(subs) + 1, np.int64)
+        np.cumsum([len(x) for x, _ in subs], out=x_starts[1:])
+        y_starts = np.zeros(len(subs) + 1, np.int64)
+        np.cumsum([len(y) for _, y in subs], out=y_starts[1:])
+        args = (op_starts, np.frombuffer(codes.encode(), np.uint8),
+                np.fromiter([m for pa in alignments for _, m in pa.operations],
+                            np.int64, n_ops),
+                np.frombuffer(sx.upper().encode(), np.uint8), x_starts,
+                np.frombuffer(sy.upper().encode(), np.uint8), y_starts,
+                trim, p.diagonalExpansion)
+        built = native.alignment_anchors(*args)
+    if built is None:
+        return [_record_anchors(pa, x, y, p)
+                for pa, (x, y) in zip(alignments, subs)], None
+    anchors, counts, max_gaps = built
+    bounds = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    return [anchors[s:e] for s, e in zip(bounds, bounds[1:])], max_gaps
+
+
+def alignment_tasks(alignments, sequences: dict,
+                    p: PairwiseAlignmentParameters) -> list:
+    """A job of alignments (io/cigar.PairwiseAlignment over
+    ``sequences``) -> the Tasks of their expectation passes, in one pass
+    over the job (cPecanRealign's expectation path,
+    cPecanRealign.c:516-534): each alignment's subsequences, minus
+    strands reverse-complemented; its anchors from its cigar's match
+    runs, kept where the bases match exactly and are not N; ragged 1, 1;
+    then chunk_tasks, with the native call's gap areas as its no-split
+    test. Equal to get_sub_sequence, alignment_to_anchor_pairs on
+    forward coordinates and filter_anchors_to_matches per alignment,
+    then chunk_tasks."""
+    subs = [(_sub_sequence(sequences[pa.contig1], pa.start1, pa.end1,
+                           pa.strand1),
+             _sub_sequence(sequences[pa.contig2], pa.start2, pa.end2,
+                           pa.strand2))
+            for pa in alignments]
+    anchors, max_gaps = alignment_anchors(alignments, subs, p)
+    unsplit = (None if max_gaps is None else
+               (max_gaps <= p.splitMatrixBiggerThanThis).tolist())
+    return chunk_tasks([(x, y, a, True, True)
+                        for (x, y), a in zip(subs, anchors)], p, unsplit)
 
 
 # ----------------------------------------------------------------- bands

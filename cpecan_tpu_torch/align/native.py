@@ -1,6 +1,7 @@
 """ctypes bindings for the native C++ host helpers (csrc/host/*.cpp): the
 anchor seeder/chainer, the poset-consistency decoder, the MEA DP, the
-progressive MSA merge and the band builder.
+progressive MSA merge, the band builder and the alignment anchors of the
+expectation tasks.
 
 Counterpart of cpecan_tpu/align/native.py. The shared library is built on
 demand with g++ into the checkout's ``build/cpecan_tpu_torch/`` (the
@@ -26,7 +27,7 @@ import numpy as np
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / "host" / f
                 for f in ("anchors.cpp", "posetfilter.cpp", "mea.cpp",
-                          "progressive.cpp", "band.cpp"))
+                          "progressive.cpp", "band.cpp", "tasks.cpp"))
 BUILD_DIR = _PKG.parent / "build" / "cpecan_tpu_torch"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -84,6 +85,12 @@ def _build_and_load():
     cdll.cpecan_build_bands.argtypes = [
         ctypes.c_int64, i64p, ctypes.c_int64, i64p, i64p, i64p,
         ctypes.c_int64, ctypes.c_int64, i64p, i32p, i32p, i64p,
+    ]
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    cdll.cpecan_alignment_anchors.restype = ctypes.c_int64
+    cdll.cpecan_alignment_anchors.argtypes = [
+        ctypes.c_int64, i64p, u8p, i64p, u8p, i64p, u8p, i64p,
+        ctypes.c_int64, ctypes.c_int64, i64p, i64p, i64p,
     ]
     return cdll
 
@@ -207,3 +214,26 @@ def build_bands(anchors, ncols: int, anchor_starts, lx, ly,
         0 if expansion is None else int(expansion), band_starts, offsets,
         widths, frame)
     return None if rc else (offsets, widths, frame)
+
+
+def alignment_anchors(op_starts, codes, lens, sx, x_starts, sy, y_starts,
+                      trim: int, expansion: int):
+    """Every alignment's matched anchors in one call (csrc/host/tasks.cpp):
+    (anchors, counts, max_gaps), the (N, 3) int64 rows of alignment i the
+    counts[i] after those of the alignments before it, and the largest
+    gap area around its anchors; or None where an alignment's ops do not
+    end at its (lx, ly). Alignment i owns ops [op_starts[i],
+    op_starts[i+1]) of the uint8 ``codes`` and int64 ``lens``, and bases
+    [x_starts[i], x_starts[i+1]) of the upper-cased uint8 ``sx`` (y
+    likewise); ``trim`` >= 0."""
+    if not available():
+        raise RuntimeError("native library unavailable")
+    n = len(x_starts) - 1
+    rows = int(np.minimum(np.diff(x_starts), np.diff(y_starts)).sum())
+    anchors = np.empty((rows, 3), np.int64)
+    counts = np.empty(n, np.int64)
+    max_gaps = np.empty(n, np.int64)
+    rc = _lib.cpecan_alignment_anchors(
+        n, op_starts, codes, lens, sx, x_starts, sy, y_starts, int(trim),
+        int(expansion), anchors, counts, max_gaps)
+    return None if rc else (anchors[: int(counts.sum())], counts, max_gaps)

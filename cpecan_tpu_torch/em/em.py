@@ -48,9 +48,7 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
-from cpecan_tpu_torch.align.batch import (
-    chunk_tasks, expectation_step, filter_anchors_to_matches,
-    get_sub_sequence)
+from cpecan_tpu_torch.align.batch import alignment_tasks, expectation_step
 from cpecan_tpu_torch.config import PairwiseAlignmentParameters
 from cpecan_tpu_torch.models.hmm import Hmm, StateMachineType
 from cpecan_tpu_torch.models.state_machine import (
@@ -138,22 +136,9 @@ def tasks_from_cigars(cigars, sequences: dict,
     """Alignments -> banded sub-problems, via the cPecanRealign
     expectation path: subsequences (rev-comp for minus strands), anchors
     from cigar match runs filtered to exact base matches, ragged 1,1,
-    large-gap splitting (cPecanRealign.c:516-534)."""
-    jobs = []
-    for pa in cigars:
-        sub_x = get_sub_sequence(sequences[pa.contig1], pa.start1, pa.end1,
-                                 pa.strand1)
-        sub_y = get_sub_sequence(sequences[pa.contig2], pa.start2, pa.end2,
-                                 pa.strand2)
-        fwd = cigar_io.PairwiseAlignment(
-            pa.contig1, 0, len(sub_x), True, pa.contig2, 0, len(sub_y), True,
-            pa.score, pa.operations)
-        anchors = cigar_io.alignment_to_anchor_pairs(
-            fwd, p.constraintDiagonalTrim, p.diagonalExpansion)
-        jobs.append((sub_x, sub_y,
-                     filter_anchors_to_matches(anchors, sub_x, sub_y),
-                     True, True))
-    return chunk_tasks(jobs, p)
+    large-gap splitting (cPecanRealign.c:516-534), built over the whole
+    job at once (align/batch.alignment_tasks)."""
+    return alignment_tasks(cigars, sequences, p)
 
 
 # ----------------------------------------------------------------- EM loop
