@@ -1181,7 +1181,8 @@ def _run_realign(fasta, cigars, extra, card):
             raise AssertionError(f"kernel {k} was not launched by the main path")
     _check_cigars(out, cigars)
     snap = metrics.snapshot()
-    cells = snap["counters"].get("dp_cells", 0)
+    cells = (snap["counters"].get("dp_cells", 0)
+             + snap["counters"].get("stream_cells_useful", 0))
     stages = ", ".join(f"{k} {v['seconds']:.2f} s"
                        for k, v in sorted(snap["stages"].items()))
     log(f"main path realign {' '.join(extra) or '(default)'}: {len(cigars)} "
@@ -1382,7 +1383,8 @@ def _run_em(fasta, cigar_file, out_model, n_records, extra, card):
             raise AssertionError(f"likelihood fell: {lk}")
     per_iter = np.diff([t0] + marks)
     snap = metrics.snapshot()
-    cells = snap["counters"].get("dp_cells", 0)
+    cells = (snap["counters"].get("dp_cells", 0)
+             + snap["counters"].get("stream_cells_useful", 0))
     stages = ", ".join(f"{k} {v['seconds']:.2f} s"
                        for k, v in sorted(snap["stages"].items()))
     log(f"main path em {' '.join(extra)}: {n_records} records x {len(lk)} "
@@ -1895,7 +1897,8 @@ def phase_long_pair(card, sites):
         f"get_aligned_pairs {wall:.2f} s wall, host (anchoring + prep) "
         f"{host:.2f} s, fb_stream {st.get('fb_stream', {}).get('seconds', 0):.2f} s; "
         f"{ctr.get('streamed_chunks', 0)} streamed chunks, "
-        f"{ctr.get('stream_windows', 0)} windows, {ctr.get('dp_cells', 0)} "
+        f"{ctr.get('stream_windows', 0)} windows, "
+        f"{ctr.get('dp_cells', 0) + ctr.get('stream_cells_useful', 0)} "
         f"DP cells; launches "
         f"{ {k: v for k, v in launches.items() if v} }; {len(pairs)} pairs; "
         f"sensitivity {sens:.4f}, specificity {spec:.4f}")
@@ -2909,7 +2912,7 @@ def phase_msa_align(card, tmp):
         f"native progressive merge) on {card}: {dt:.2f} s; "
         f"{len(ma.chosen_pairwise_alignments)} pairwise alignments, "
         f"{len(cols)} columns, {len(ma.aligned_pairs)} aligned pairs kept, "
-        f"{snap['counters'].get('dp_cells', 0)} DP cells; stages "
+        f"{snap['counters'].get('dp_cells', 0) + snap['counters'].get('stream_cells_useful', 0)} DP cells; stages "
         f"{_stages(snap)}; outside the stages (reweighting, "
         f"distance matrix, pair choice) {dt - staged:.2f} s; launches "
         f"fwd {launches['fwd']}, bwd {launches['bwd']}")

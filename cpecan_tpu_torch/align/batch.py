@@ -340,7 +340,7 @@ def stream_task(hmm, t: Task, band, W: int, p: PairwiseAlignmentParameters,
         len(t.sub_x), len(t.sub_y), t.ragged_left, t.ragged_right, mode, W,
         fb_streaming.window_rows(p), fb_parallel.burnin_rows(p),
         threshold=p.threshold)
-    metrics.add("dp_cells", int(band.widths.sum()))
+    metrics.add("stream_cells_useful", int(band.widths.sum()))
     metrics.add("streamed_chunks", 1)
     metrics.add("stream_windows", out["windows"])
     return out
@@ -435,10 +435,11 @@ def batch_posteriors(sm: StateMachine, jobs, p: PairwiseAlignmentParameters,
     for t, band, W in streamed:
         with metrics.stage("fb_stream"):
             out = stream_task(hmm, t, band, W, p, mode)
-            for oi, k in enumerate(keys):
-                results[oi][t.job].append(_stream_entries_to_pairs(
-                    out["post_entries"][k], out["xoff"],
-                    band.diagonal_number, t.x1, t.y1))
+            with metrics.stage("stream_readback"):
+                for oi, k in enumerate(keys):
+                    results[oi][t.job].append(_stream_entries_to_pairs(
+                        out["post_entries"][k], out["xoff"],
+                        band.diagonal_number, t.x1, t.y1))
 
     pending = []  # (items, offs (B, P+1), out) per launch
     pending_bytes = 0

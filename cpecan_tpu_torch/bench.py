@@ -197,7 +197,8 @@ def _metered_cells(fn) -> int:
     (estimated single-core C time = in-band cells / C cell rate)."""
     metrics.reset()
     fn()
-    return int(metrics.snapshot()["counters"].get("dp_cells", 0))
+    c = metrics.snapshot()["counters"]
+    return int(c.get("dp_cells", 0) + c.get("stream_cells_useful", 0))
 
 
 def _checked(result: dict, check) -> dict:
@@ -501,7 +502,8 @@ def bench_anchored_50kb(b: Bench, n: int = 50_000, reps: int = 3,
     def run():
         metrics.reset()
         pairs = pairwise.get_aligned_pairs(sm, x, y, p, device=b.device)
-        cells[0] = metrics.snapshot()["counters"].get("dp_cells", 0)
+        c = metrics.snapshot()["counters"]
+        cells[0] = c.get("dp_cells", 0) + c.get("stream_cells_useful", 0)
         result[0] = pairs
         if len(pairs) == 0:
             raise RuntimeError("get_aligned_pairs returned no pairs")

@@ -26,6 +26,7 @@ from cpecan_tpu_torch.io import cigar as cigar_io
 from cpecan_tpu_torch.io.fasta import fasta_read_file
 from cpecan_tpu_torch.msa.aligner import filter_pairwise_alignment_to_make_pairs_ordered
 from cpecan_tpu_torch.ops import pairs as pairs_mod
+from cpecan_tpu_torch.utils import metrics
 from cpecan_tpu_torch.utils.pipeline import prefetch_map
 
 
@@ -78,15 +79,17 @@ def main(argv=None, stdout=None) -> int:
                                                       device=device)
         for (query_header, query_seq, target_header, target_seq), aligned \
                 in zip(group, results):
-            aligned = pairs_mod.reweight_aligned_pairs(
-                aligned, len(target_seq), len(query_seq), p.gapGamma)
-            aligned = filter_pairwise_alignment_to_make_pairs_ordered(
-                aligned, target_seq, query_seq, args.matchGamma)
-            aligned = pairs_mod.sort_pairs(aligned)
-            pa = cigar_io.aligned_pairs_to_alignment(
-                aligned, target_header, query_header,
-                0, len(target_seq), 0, len(query_seq), 0)
-            cigar_io.cigar_write(stdout, pa)
+            with metrics.stage("align_decode"):
+                aligned = pairs_mod.reweight_aligned_pairs(
+                    aligned, len(target_seq), len(query_seq), p.gapGamma)
+                aligned = filter_pairwise_alignment_to_make_pairs_ordered(
+                    aligned, target_seq, query_seq, args.matchGamma)
+                aligned = pairs_mod.sort_pairs(aligned)
+            with metrics.stage("align_cigar_out"):
+                pa = cigar_io.aligned_pairs_to_alignment(
+                    aligned, target_header, query_header,
+                    0, len(target_seq), 0, len(query_seq), 0)
+                cigar_io.cigar_write(stdout, pa)
     return 0
 
 

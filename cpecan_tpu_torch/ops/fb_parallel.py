@@ -42,6 +42,7 @@ from cpecan_tpu_torch.ops import fb_wavefront as _wf
 from cpecan_tpu_torch.ops.fb_segmented import POST_KEYS, _to_host
 from cpecan_tpu_torch.ops.fb_streaming import (
     _device_pair, _host_frame, _pad_frame)
+from cpecan_tpu_torch.utils import metrics
 
 # Diagonals per window: enough windows on a 50 kb pair to fill the card,
 # long enough that the 2*burnin halo stays a minor share.
@@ -133,8 +134,9 @@ def fb_pass_parallel(hmm, seq_x_codes, seq_y_codes, offsets: np.ndarray,
             _run_slice(hmm, t, nz, prob, sx_pad, sy_pad, fr, int(ly), L,
                        ragged_right, F0[..., :Wb], ss[sl], k0s[sl], bases[sl],
                        K, Kp, Wb, pad_off, last, mode, thr, keys, entries)
-    return {"windows": nW, "xoff": frame[0],
-            "post_entries": {k: _to_host(entries[k]) for k in keys}}
+    with metrics.stage("stream_readback"):
+        post_entries = {k: _to_host(entries[k]) for k in keys}
+    return {"windows": nW, "xoff": frame[0], "post_entries": post_entries}
 
 
 def _run_slice(hmm, t, nz, prob, sx_pad, sy_pad, fr, LY, L, ragged_right,
@@ -148,9 +150,11 @@ def _run_slice(hmm, t, nz, prob, sx_pad, sy_pad, fr, LY, L, ragged_right,
     s = torch.from_numpy(ss).to(dev)
     base = torch.from_numpy(bases).to(dev)
     k0 = torch.from_numpy(k0s).to(dev)
-    st = _wf.precompute_window(hmm, sx_pad, sy_pad, fr, LY, L, s, Kp, W,
-                               pad_off, base=base,
-                               emit=torch.stack([k0, k0 + K], 1))
+    with metrics.stage("stream_prep"):
+        st = _wf.precompute_window(hmm, sx_pad, sy_pad, fr, LY, L, s, Kp, W,
+                                   pad_off, base=base,
+                                   emit=torch.stack([k0, k0 + K], 1))
+    metrics.add("stream_cells_launched", n * Kp * W)
     row = lambda r: r.clamp(0, last)
     band = lambda r: (fr["jlo"][row(r)] - base, fr["jhi"][row(r)] - base)
 
@@ -183,6 +187,11 @@ def _run_slice(hmm, t, nz, prob, sx_pad, sy_pad, fr, LY, L, ragged_right,
         st["c1"], st["c0"], st["bm1"], st["bm0"], st["pm"], end_row, nz, mode,
         carry=(b1, b2, torch.ones(n, device=dev), zero, zero),
         k0=int(ss[0]), site="par_bwd")
+    if dev.type == "cuda":
+        # the slice's launches precede its compaction in stream order:
+        # wait for them here, apart from the host's work
+        with metrics.stage("device_wait"):
+            torch.cuda.current_stream(dev).synchronize()
     for key, post in zip(keys, posts):
         wi, kl, j = torch.nonzero(post >= thr, as_tuple=True)
         entries[key].append((post[wi, kl, j], s[wi] + kl, j + base[wi]))

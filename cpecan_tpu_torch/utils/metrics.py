@@ -28,14 +28,29 @@ The stages the program opens, by the thread they run on:
   once a batch or bucket), ``fb_pass`` (the copies, launches, readback
   and sparse decode; in ``align/batch.py`` also the launch inputs, the
   model's copy and the per-job pair arrays), ``fb_stream`` (a long chunk
-  through a streaming engine), ``device_wait`` (inside ``fb_pass``, CUDA
-  only: the host blocked until the card has run what it queued);
+  through a streaming engine), ``device_wait`` (inside ``fb_pass``, and
+  in ``ops/fb_parallel.py`` once a window batch; CUDA only: the host
+  blocked until the card has run what it queued);
+- streaming (inside ``fb_stream``, the parallel engine's alone):
+  ``stream_prep`` (the host's time in a window batch's
+  ``precompute_window``, which queues the row and slot kernels' window
+  forms; their device time is in the trace) and ``stream_readback`` (a
+  streamed chunk's posterior entries copied back, and their conversion
+  to pairs in ``align/batch.py``);
+- align CLI (``cli/align.py``, main thread, once a pair): ``align_decode``
+  (reweight, poset filter and sort) and ``align_cigar_out`` (build and
+  write the cigar);
 - ``host_anchoring`` (``align/anchors.py``) and ``msa_merge``
   (``msa/aligner.py``), on the caller's thread.
 
-The prefetch worker's ``prepare`` opens no stage. Counters: ``dp_cells``,
-``streamed_chunks``, ``stream_windows``, ``native_bands`` (bands built
-by the native builder, ``ops/band.construct_bands``; 0 on the numpy
+The prefetch worker's ``prepare`` opens no stage. Counters: ``dp_cells``
+(the cells of batch launches; streamed chunks count in
+``stream_cells_useful``), ``streamed_chunks``, ``stream_windows``,
+``stream_cells_launched`` (the cells of every window batch's grid in the
+parallel engine, windows x rows x width, as its stream prep is made),
+``stream_cells_useful`` (the streamed chunks' band cells, either
+engine), ``native_bands`` (bands built by the native builder,
+``ops/band.construct_bands``; 0 on the numpy
 fallback), and ``staged_main_s``: the
 seconds the main thread spent inside at least one stage since
 ``reset()`` (nested stages once, other threads' stages not at all), so
@@ -124,7 +139,8 @@ def report_lines() -> list:
         lines.append(f"{k}: {v['calls']} calls {v['seconds']:.3f}s")
     for k, v in sorted(snap["counters"].items()):
         lines.append(f"{k}: {v}")
-    cells = snap["counters"].get("dp_cells")
+    cells = (snap["counters"].get("dp_cells", 0)
+             + snap["counters"].get("stream_cells_useful", 0))
     fb = snap["stages"].get("fb_pass")
     if cells and fb and fb["seconds"] > 0:
         lines.append(f"dp_cells_per_sec: {cells / fb['seconds']:,.0f}")
